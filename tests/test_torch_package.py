@@ -1,0 +1,148 @@
+"""The port's package rules: no JAX, CUDA by default, device dispatch.
+
+Runs anywhere: without a GPU the entry points must raise unless the CPU is
+asked for, and K1's wrapper must take the plain version for CPU tensors
+and never fall back to it for CUDA ones. The one test that needs the card
+is marked `cuda` and skips without it.
+"""
+
+import ast
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import balance_robot_tpu_torch as brt
+from balance_robot_tpu_torch.envs.vector import VecEnv
+from balance_robot_tpu_torch.physics import cuda_step, fast_solver
+from balance_robot_tpu_torch.physics import robot_core as rc
+
+torch.set_num_threads(1)
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "balance_robot_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    assert len(PORT_FILES) > 15
+    for path in PORT_FILES:
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "balance_robot_tpu",
+                               "flax", "optax"), f"{path}: imports {mod}"
+
+
+def test_registry_has_the_ported_ids():
+    assert brt.env_ids() == ["Env01-v1", "Env01-v2", "Env01-v3", "Env02-v1"]
+    with pytest.raises(KeyError):
+        brt.make("Env03-v2", device="cpu")
+
+
+def test_entry_points_need_cuda_unless_the_cpu_is_asked_for(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        brt.make("Env01-v2")
+    env = brt.make("Env01-v2", device="cpu")
+    assert env.device == torch.device("cpu")
+    states, obs = VecEnv(env, 2).reset()
+    assert obs.device.type == "cpu" and states.phys.qpos.device.type == "cpu"
+
+
+def _run_chip_smoke(cwd):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+
+
+def test_chip_smoke_fails_without_a_gpu_or_without_the_repo(tmp_path):
+    for cwd in (ROOT, tmp_path):
+        if cwd == tmp_path:
+            shutil.copy(ROOT / "chip_smoke.py", tmp_path)
+        res = _run_chip_smoke(cwd)
+        assert res.returncode != 0
+        assert '"ok": true' not in res.stdout
+
+
+def test_cpu_tensors_take_the_plain_version(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("K1 launched for CPU tensors")
+
+    monkeypatch.setattr(cuda_step, "control_step_cuda", refuse)
+    monkeypatch.setattr(cuda_step, "launches", 0)
+    B = 3
+    qpos = torch.zeros(B, 9, dtype=torch.float64)
+    qpos[:, 3] = 1.0
+    qpos[:, 2] = -0.021
+    qvel = torch.zeros(B, 8, dtype=torch.float64)
+    ctrl = torch.ones(B, 2, dtype=torch.float64)
+    out = cuda_step.control_step(qpos, qvel, qvel, ctrl, None,
+                                 rc.ENV01_PARAMS, frame_skip=2)
+    ref = cuda_step.control_step_plain(qpos, qvel, qvel, ctrl, None,
+                                       rc.ENV01_PARAMS, frame_skip=2)
+    assert cuda_step.launches == 0
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
+    x = torch.zeros(2, 9)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_step.control_step_cuda(x, torch.zeros(2, 8), torch.zeros(2, 8),
+                                    torch.zeros(2, 2), None, rc.ENV01_PARAMS)
+    assert cuda_step.launches == 0
+
+
+def test_kernel_module_imports_and_builds_lazily():
+    """Importing the kernel module needs neither nvcc nor a GPU, and builds
+    nothing; the kernel's struct mirrors the scene parameters."""
+    code = ("import balance_robot_tpu_torch.physics.cuda_step as m; "
+            "assert m._lib is None and m.launches == 0")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert res.returncode == 0, res.stderr
+    p = cuda_step.kernel_params(fast_solver(rc.ENV02_PARAMS))
+    assert p.timestep == rc.ENV02_PARAMS.timestep
+    assert p.wheel.mu1 == 1.0 and p.chassis.invweight == \
+        rc.ENV02_PARAMS.chassis_contact.invweight
+    assert p.wheel.k == 1.0 / (0.95 * 0.95 * 0.02 * 0.02 * 1.0 * 1.0)
+
+
+@pytest.mark.cuda
+def test_k1_matches_plain_on_the_card():
+    """K1 against its plain version on the GPU (float64, ragged batch,
+    a short control step, with and without friction)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc to build K1)")
+    g = torch.Generator().manual_seed(0)
+    B = 37
+    qpos = torch.zeros(B, 9, dtype=torch.float64)
+    qpos[:, 3] = 1.0
+    qpos[:, 4] = torch.rand(B, generator=g, dtype=torch.float64) * 0.2
+    qpos[:, 2] = -0.021
+    qvel = torch.randn(B, 8, generator=g, dtype=torch.float64) * 0.3
+    ctrl = torch.randn(B, 2, generator=g, dtype=torch.float64) * 5
+    fric = torch.rand(B, generator=g, dtype=torch.float64) * 0.5 + 0.5
+    for params in (rc.ENV01_PARAMS, fast_solver(rc.ENV02_PARAMS)):
+        args = [t.cuda() for t in (qpos, qvel, torch.zeros_like(qvel), ctrl)]
+        fr = fric.cuda() if params.dynamic_friction else None
+        before = cuda_step.launches
+        out = cuda_step.control_step(*args, fr, params, frame_skip=20)
+        assert cuda_step.launches == before + 1
+        ref = cuda_step.control_step_plain(*args, fr, params, frame_skip=20)
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9)
+    print(json.dumps(cuda_step.build_info["resources"]))
