@@ -32,7 +32,9 @@ def env_ids():
 def _populate():
     from .envs.env01 import Env01V1, Env01V2, Env01V3
     from .envs.env02 import Env02V1
-    for cls in (Env01V1, Env01V2, Env01V3, Env02V1):
+    from .envs.env03 import Env03V1, Env03V2, Env03V1Fail
+    for cls in (Env01V1, Env01V2, Env01V3, Env02V1, Env03V1, Env03V2,
+                Env03V1Fail):
         register(cls.id, cls)
 
 

@@ -22,7 +22,7 @@ from typing import NamedTuple
 import torch
 
 from ..physics.step import PhysState
-from ..physics.slin import qmul
+from ..physics.slin import qmat, qmul
 
 PITCH_MAX = 0.25
 PITCH_DOT_MAX = 1.0
@@ -71,6 +71,16 @@ def pitch_of(qpos):
     w, x, y, z = (q / n).unbind(-1)
     pitch = torch.atan2(2 * (y * z + w * x), 1 - 2 * (x * x + y * y))
     return torch.where(qpos[:, 3] == 0.0, torch.zeros_like(pitch), pitch)
+
+
+def yaw_of(qpos):
+    """Euler-z (extrinsic xyz) of the chassis quaternion (reference
+    get_yaw), with the same qpos[3] == 0 -> 0 guard."""
+    q = qpos[:, 3:7]
+    n = q.square().sum(-1, keepdim=True).sqrt().clamp_min(1e-30)
+    R = qmat(q / n)
+    yaw = torch.atan2(R[:, 1, 0], R[:, 0, 0])
+    return torch.where(qpos[:, 3] == 0.0, torch.zeros_like(yaw), yaw)
 
 
 def wheel_velocities(qvel):

@@ -11,26 +11,19 @@ the state decides, and a CUDA call that cannot build or launch raises.
 
 The kernel is built at first use with `nvcc` into `build/torch_kernels/`
 at the repository root, as a shared library with a plain C interface
-loaded through `ctypes`; a content hash of the source names the library,
-so an edited source is rebuilt and an unchanged one is reused.
+loaded through `ctypes` (`kernel_build.py`); a content hash of the source
+and of the headers it includes names the library, so an edited source is
+rebuilt and an unchanged one is reused.
 """
 
 import functools
-import hashlib
-import os
-import re
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
+from . import kernel_build
 from .step import PhysState, control_step as _control_step_torch
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "control_step.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LABEL, SOURCE = "k1", "control_step.cu"      # library label, file in csrc/
 
 # kernel launches since import (or since a caller reset it to 0)
 launches = 0
@@ -80,26 +73,28 @@ def _params_struct():
     return ContactP, Params
 
 
+def contact_params(c):
+    """The kernel's ContactP struct for ContactParams `c`."""
+    ContactP, _ = _params_struct()
+    d0, d1, width, mid, power = c.solimp
+    tc, dr = c.solref
+    dmax = max(d0, d1)
+    mu1, mu2 = c.friction
+    return ContactP(
+        d0=d0, d1=d1, width=width, mid=mid, power=power,
+        imp_a=1.0 / (mid ** (power - 1.0)),
+        imp_b=1.0 / ((1.0 - mid) ** (power - 1.0)),
+        k=1.0 / (dmax * dmax * tc * tc * dr * dr), b=2.0 / (dmax * tc),
+        mu1=mu1, mu2=mu2,
+        dA1=2.0 * mu1 * mu1 * (1.0 + mu1 * mu1) * c.invweight,
+        dA2=2.0 * mu2 * mu2 * (1.0 + mu2 * mu2) * c.invweight,
+        invweight=c.invweight)
+
+
 def kernel_params(p):
     """The kernel's Params struct for RobotSceneParams `p`, with every
     derived constant evaluated in double as the plain version does."""
-    ContactP, Params = _params_struct()
-
-    def contact(c):
-        d0, d1, width, mid, power = c.solimp
-        tc, dr = c.solref
-        dmax = max(d0, d1)
-        mu1, mu2 = c.friction
-        return ContactP(
-            d0=d0, d1=d1, width=width, mid=mid, power=power,
-            imp_a=1.0 / (mid ** (power - 1.0)),
-            imp_b=1.0 / ((1.0 - mid) ** (power - 1.0)),
-            k=1.0 / (dmax * dmax * tc * tc * dr * dr), b=2.0 / (dmax * tc),
-            mu1=mu1, mu2=mu2,
-            dA1=2.0 * mu1 * mu1 * (1.0 + mu1 * mu1) * c.invweight,
-            dA2=2.0 * mu2 * mu2 * (1.0 + mu2 * mu2) * c.invweight,
-            invweight=c.invweight)
-
+    _, Params = _params_struct()
     # fk reads the masses and inertias of ENV01_PARAMS, shared by all scenes
     from .robot_core import ENV01_PARAMS as m
     return Params(
@@ -109,18 +104,11 @@ def kernel_params(p):
         iw0=m.i_wheel[0], iw1=m.i_wheel[1], iw2=m.i_wheel[2],
         damping=p.joint_damping, act_gain=p.act_gain, act_bias=p.act_bias,
         ctrl_range=p.ctrl_range, force_range=p.force_range,
-        wheel=contact(p.wheel_contact), chassis=contact(p.chassis_contact))
+        wheel=contact_params(p.wheel_contact),
+        chassis=contact_params(p.chassis_contact))
 
 
 # ------------------------------------------------------------ build / load
-
-def _nvcc():
-    from torch.utils.cpp_extension import CUDA_HOME
-    nvcc = Path(CUDA_HOME or "", "bin", "nvcc")
-    if not nvcc.exists():
-        raise RuntimeError("nvcc not found: K1 needs the CUDA toolkit")
-    return str(nvcc)
-
 
 def _bind(path):
     import ctypes
@@ -140,36 +128,35 @@ def _bind(path):
     return lib
 
 
-def build():
-    """Build K1 if its source changed, load it, and return the library."""
+def build(process=None):
+    """Build K1 if its sources changed, load it, and return the library.
+    `process` is a compile already started with `kernel_build.start_build`."""
     global _lib
-    if _lib is not None:
-        return _lib
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"libk1_{tag}.so"
-    log = BUILD_DIR / f"libk1_{tag}.ptxas.txt"
-    t0 = time.perf_counter()
-    cached = so.exists()
-    if not cached:
-        nvcc = _nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f".libk1_{tag}.{os.getpid()}.so"
-        res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build K1:\n{res.stderr}")
-        log.write_text(res.stderr)
-        os.replace(tmp, so)
-    ptxas = log.read_text() if log.exists() else ""
-    build_info.update(seconds=time.perf_counter() - t0, cached=cached,
-                      library=str(so), ptxas=ptxas,
-                      resources=re.findall(r"Used \d+ registers[^\n]*", ptxas))
-    _lib = _bind(so)
+    if _lib is None:
+        _lib = _bind(kernel_build.build(LABEL, SOURCE, build_info, process))
     return _lib
 
 
 # ------------------------------------------------------------ launch
+
+def check_kernel_args(kernel, ref, args):
+    """Raise unless every (name, tensor, shape) of `args` is a contiguous
+    float32 / float64 CUDA tensor of that shape, on `ref`'s device and of
+    its dtype: what the kernels take."""
+    for name, t, shape in args:
+        if not t.is_cuda or t.device != ref.device:
+            raise ValueError(f"{kernel}: {name} must be on {ref.device} "
+                             f"(CUDA), got {t.device}")
+        if t.dtype != ref.dtype or t.dtype not in (torch.float32,
+                                                   torch.float64):
+            raise ValueError(f"{kernel}: {name} must be float32 or float64 "
+                             f"like qpos, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{kernel}: {name} must have shape {shape}, "
+                             f"got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+
 
 def control_step_cuda(qpos, qvel, ws, ctrl, friction, params, frame_skip=250):
     """Launch K1 on the current stream; CUDA tensors only."""
@@ -180,19 +167,7 @@ def control_step_cuda(qpos, qvel, ws, ctrl, friction, params, frame_skip=250):
             ("ws", ws, (B, 8)), ("ctrl", ctrl, (B, 2))]
     if use_friction:
         args.append(("friction", friction, (B,)))
-    for name, t, shape in args:
-        if not t.is_cuda or t.device != qpos.device:
-            raise ValueError(f"K1: {name} must be on {qpos.device} (CUDA), "
-                             f"got {t.device}")
-        if t.dtype != qpos.dtype or t.dtype not in (torch.float32,
-                                                    torch.float64):
-            raise ValueError(f"K1: {name} must be float32 or float64 like "
-                             f"qpos, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"K1: {name} must have shape {shape}, got "
-                             f"{tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"K1: {name} must be contiguous")
+    check_kernel_args("K1", qpos, args)
     qp, qv, w = (torch.empty_like(t) for t in (qpos, qvel, ws))
     if B == 0:
         return qp, qv, w
@@ -214,24 +189,28 @@ def control_step_cuda(qpos, qvel, ws, ctrl, friction, params, frame_skip=250):
     return qp, qv, w
 
 
-def count_ops(qpos, qvel, ws, ctrl, friction, params, frame_skip=250):
-    """Arithmetic operations K1's source performs for one control step of
-    each env given (CPU tensors, float64, run on the host); returns a list
-    of counts, one per env."""
+def count_ops(qpos, qvel, ws, ctrl, friction, params, frame_skip=250,
+              lib=None):
+    """Run K1's own source on the host, in double, for one control step of
+    each env given (CPU tensors). Returns (counts, qpos', qvel', ws'): the
+    arithmetic operations per env and the new state. `lib` is a library
+    bound with `_bind` (the source compiled as plain C++); by default the
+    nvcc build."""
     import ctypes
-    lib = build()
+    lib = lib or build()
     kp = kernel_params(params)
     use_friction = friction is not None and params.dynamic_friction
     dptr = ctypes.POINTER(ctypes.c_double)
     counts = []
+    outs = [torch.empty(qpos.shape[0], n, dtype=torch.float64)
+            for n in (9, 8, 8)]
     for i in range(qpos.shape[0]):
         ins = [t[i].detach().to("cpu", torch.float64).contiguous()
                for t in (qpos, qvel, ws, ctrl)]
-        outs = [torch.empty(n, dtype=torch.float64) for n in (9, 8, 8)]
         fr = float(friction[i]) if use_friction else 0.0
         counts.append(lib.k1_count_ops(
             *(ctypes.cast(t.data_ptr(), dptr) for t in ins), fr,
-            *(ctypes.cast(t.data_ptr(), dptr) for t in outs),
+            *(ctypes.cast(o[i].data_ptr(), dptr) for o in outs),
             ctypes.byref(kp), params.newton_iters, params.ls_iters,
             frame_skip, int(use_friction)))
-    return counts
+    return (counts, *outs)

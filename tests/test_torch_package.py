@@ -1,9 +1,9 @@
 """The port's package rules: no JAX, CUDA by default, device dispatch.
 
 Runs anywhere: without a GPU the entry points must raise unless the CPU is
-asked for, and K1's wrapper must take the plain version for CPU tensors
-and never fall back to it for CUDA ones. The one test that needs the card
-is marked `cuda` and skips without it.
+asked for, and the kernels' wrappers (K1, K2) must take the plain version
+for CPU tensors and never fall back to it for CUDA ones. The tests that
+need the card are marked `cuda` and skip without it.
 """
 
 import ast
@@ -19,7 +19,8 @@ import torch
 
 import balance_robot_tpu_torch as brt
 from balance_robot_tpu_torch.envs.vector import VecEnv
-from balance_robot_tpu_torch.physics import cuda_step, fast_solver
+from balance_robot_tpu_torch.physics import block_step as bs
+from balance_robot_tpu_torch.physics import cuda_block, cuda_step, fast_solver
 from balance_robot_tpu_torch.physics import robot_core as rc
 
 torch.set_num_threads(1)
@@ -37,7 +38,9 @@ def _imported_modules(path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    assert len(PORT_FILES) > 15
+    assert len(PORT_FILES) > 22
+    assert {"env03.py", "cuda_block.py", "kernel_build.py"} <= {
+        p.name for p in PORT_FILES}
     for path in PORT_FILES:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -46,16 +49,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_registry_has_the_ported_ids():
-    assert brt.env_ids() == ["Env01-v1", "Env01-v2", "Env01-v3", "Env02-v1"]
+    assert brt.env_ids() == ["Env01-v1", "Env01-v2", "Env01-v3", "Env02-v1",
+                             "Env03-v1", "Env03-v1-fail", "Env03-v2"]
     with pytest.raises(KeyError):
-        brt.make("Env03-v2", device="cpu")
+        brt.make("EnvMove05-v1", device="cpu")
 
 
-def test_entry_points_need_cuda_unless_the_cpu_is_asked_for(monkeypatch):
+@pytest.mark.parametrize("env_id", ["Env01-v2", "Env03-v2"])
+def test_entry_points_need_cuda_unless_the_cpu_is_asked_for(monkeypatch,
+                                                            env_id):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        brt.make("Env01-v2")
-    env = brt.make("Env01-v2", device="cpu")
+        brt.make(env_id)
+    env = brt.make(env_id, device="cpu")
     assert env.device == torch.device("cpu")
     states, obs = VecEnv(env, 2).reset()
     assert obs.device.type == "cpu" and states.phys.qpos.device.type == "cpu"
@@ -97,19 +103,42 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+def test_cpu_tensors_take_the_plain_version_k2(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("K2 launched for CPU tensors")
+
+    monkeypatch.setattr(cuda_block, "control_step14_cuda", refuse)
+    monkeypatch.setattr(cuda_block, "launches", 0)
+    qpos, qvel, ctrl = block_states(6)
+    out = cuda_block.control_step14(qpos, qvel, qvel, ctrl, bs.ENV03_PARAMS,
+                                    frame_skip=2)
+    ref = cuda_block.control_step14_plain(qpos, qvel, qvel, ctrl,
+                                          bs.ENV03_PARAMS, frame_skip=2)
+    assert cuda_block.launches == 0
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
 def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
     x = torch.zeros(2, 9)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_step.control_step_cuda(x, torch.zeros(2, 8), torch.zeros(2, 8),
                                     torch.zeros(2, 2), None, rc.ENV01_PARAMS)
     assert cuda_step.launches == 0
+    with pytest.raises(ValueError, match="K2.*CUDA"):
+        cuda_block.control_step14_cuda(
+            torch.zeros(2, 16), torch.zeros(2, 14), torch.zeros(2, 14),
+            torch.zeros(2, 2), bs.ENV03_PARAMS)
+    assert cuda_block.launches == 0
 
 
 def test_kernel_module_imports_and_builds_lazily():
     """Importing the kernel module needs neither nvcc nor a GPU, and builds
     nothing; the kernel's struct mirrors the scene parameters."""
     code = ("import balance_robot_tpu_torch.physics.cuda_step as m; "
-            "assert m._lib is None and m.launches == 0")
+            "import balance_robot_tpu_torch.physics.cuda_block as m2; "
+            "assert m._lib is None and m.launches == 0; "
+            "assert m2._lib is None and m2.launches == 0")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300,
                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
@@ -119,6 +148,12 @@ def test_kernel_module_imports_and_builds_lazily():
     assert p.wheel.mu1 == 1.0 and p.chassis.invweight == \
         rc.ENV02_PARAMS.chassis_contact.invweight
     assert p.wheel.k == 1.0 / (0.95 * 0.95 * 0.02 * 0.02 * 1.0 * 1.0)
+    p14 = cuda_block.kernel_params(fast_solver(bs.ENV03_PARAMS))
+    assert p14.robot.wheel.mu1 == 1.0 and p14.block_mass == bs.BLOCK_MASS
+    assert p14.block_wheel.invweight == bs.BLOCK_WHEEL.invweight
+    assert p14.block_floor.k == 1.0 / (0.95 * 0.95 * 0.0125 * 0.0125
+                                       * 0.95 * 0.95)
+    assert p14.block_half == 0.02 and p14.block_margin == 0.002
 
 
 @pytest.mark.cuda
@@ -146,3 +181,41 @@ def test_k1_matches_plain_on_the_card():
         for a, b in zip(out, ref):
             torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9)
     print(json.dumps(cuda_step.build_info["resources"]))
+
+
+def block_states(B, seed=0):
+    """chip_smoke.py's robot + block states in every contact regime, as
+    float64 CPU tensors qpos (B,16), qvel (B,14), ctrl (B,2)."""
+    import numpy as np
+    import chip_smoke
+    return tuple(torch.tensor(x) for x in chip_smoke.random_states14(
+        np.random.default_rng(seed), B))
+
+
+@pytest.mark.cuda
+def test_k2_matches_plain_on_the_card():
+    """K2 against its plain version on the GPU (float64, ragged batch, a
+    short control step at both solver grades, every block contact kind
+    active), and a float32 launch at the serving batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc to build K2)")
+    B = 61
+    qpos, qvel, ctrl = block_states(B)
+    for params in (bs.ENV03_PARAMS, fast_solver(bs.ENV03_PARAMS)):
+        args = [t.cuda() for t in (qpos, qvel, torch.zeros_like(qvel), ctrl)]
+        before = cuda_block.launches
+        out = cuda_block.control_step14(*args, params, frame_skip=40)
+        assert cuda_block.launches == before + 1
+        seen = {}
+        ref = cuda_block.control_step14_plain(*args, params, frame_skip=40,
+                                              contact_counts=seen)
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9)
+        assert all(int(v.sum()) > 0 for v in seen.values()), seen
+    print(json.dumps(cuda_block.build_info["resources"]))
+    qpos, qvel, ctrl = block_states(4096, seed=1)
+    args = [t.float().cuda() for t in (qpos, qvel, torch.zeros_like(qvel),
+                                       ctrl)]
+    out = cuda_block.control_step14(*args, fast_solver(bs.ENV03_PARAMS))
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(t).all() for t in out)
