@@ -1,8 +1,7 @@
 """balance_robot_tpu_torch: the balance-robot system in PyTorch and CUDA.
 
 A port of `balance_robot_tpu` (JAX) that keeps its module layout. The env
-registry uses the reference's Gymnasium ids; this package registers the
-ids it has ported.
+registry uses the reference's Gymnasium ids, all nine of them.
 """
 
 import torch
@@ -33,8 +32,10 @@ def _populate():
     from .envs.env01 import Env01V1, Env01V2, Env01V3
     from .envs.env02 import Env02V1
     from .envs.env03 import Env03V1, Env03V2, Env03V1Fail
+    from .envs.cal01 import Cal01
+    from .envs.move import EnvMove05
     for cls in (Env01V1, Env01V2, Env01V3, Env02V1, Env03V1, Env03V2,
-                Env03V1Fail):
+                Env03V1Fail, Cal01, EnvMove05):
         register(cls.id, cls)
 
 

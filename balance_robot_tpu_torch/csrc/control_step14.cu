@@ -93,23 +93,10 @@ BRT_HD void block_rows(int r, const T cpos[3], T dist, const T n[3],
                        const ContactP& prm, const Scene<T>& s, const T* qvel,
                        T (*J)[NV], T* aref, T* D) {
   T Jn[NV], Jt1[NV], Jt2[NV];
-  for (int j = 0; j < NV_ROBOT; ++j) Jn[j] = Jt1[j] = Jt2[j] = T(0.0);
-  if (robot_body >= 0) {
-    T rel[3];
-    for (int a = 0; a < 3; ++a) rel[a] = cpos[a] - s.k.com[a];
-    for (int j = 0; j < NV_ROBOT; ++j) {
-      bool in_chain = j < 6 || (robot_body == 1 && j == 6) ||
-                      (robot_body == 2 && j == 7);
-      if (!in_chain) continue;
-      const T* ang = s.k.cdof[j];
-      T v[3];
-      cross(ang, rel, v);
-      for (int a = 0; a < 3; ++a) v[a] = s.k.cdof[j][3 + a] + v[a];
-      Jn[j] = -dot3(n, v);
-      Jt1[j] = -dot3(t1, v);
-      Jt2[j] = -dot3(t2, v);
-    }
-  }
+  if (robot_body >= 0)
+    robot_neg_jac(cpos, robot_body, n, t1, t2, s.k, Jn, Jt1, Jt2);
+  else
+    for (int j = 0; j < NV_ROBOT; ++j) Jn[j] = Jt1[j] = Jt2[j] = T(0.0);
   T rel[3];
   for (int a = 0; a < 3; ++a) rel[a] = cpos[a] - s.pos_b[a];
   for (int i = 0; i < 3; ++i) {

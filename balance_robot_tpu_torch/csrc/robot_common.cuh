@@ -1,5 +1,6 @@
 // Device code shared by the fused control-step kernels (K1: control_step.cu,
-// 8-dof robot on a flat floor; K2: control_step14.cu, robot + block).
+// 8-dof robot on a flat floor; K2: control_step14.cu, robot + block; K3:
+// control_step_walls.cu, robot between static walls).
 //
 // Everything here is templated on the scalar type T (float, double, or the
 // host-only `Counted`) and, where the size matters, on the number of dofs
@@ -544,6 +545,32 @@ BRT_HD void robot_floor_rows(int r, const T cpos[3], T dist, int body, T mu1,
   }
   emit_rows<T, NV>(r, Jn, Jt1, Jt2, dist, mu1, mu2, dA1, dA2, prm, qvel, J,
                    aref, D);
+}
+
+// -J of the point `cpos` of robot body `body` (0 chassis, 1 left wheel, 2
+// right wheel), taken about the robot's com and projected on n, t1, t2:
+// what a contact with a body outside the robot's tree (the block, a wall)
+// puts on the robot's 8 columns. Columns off the body's chain are zero.
+template <typename T>
+BRT_HD void robot_neg_jac(const T cpos[3], int body, const T n[3],
+                          const T t1[3], const T t2[3], const RobotKin<T>& k,
+                          T* Jn, T* Jt1, T* Jt2) {
+  T rel[3];
+  for (int a = 0; a < 3; ++a) rel[a] = cpos[a] - k.com[a];
+  for (int j = 0; j < NV_ROBOT; ++j) {
+    bool in_chain = j < 6 || (body == 1 && j == 6) || (body == 2 && j == 7);
+    if (!in_chain) {
+      Jn[j] = Jt1[j] = Jt2[j] = T(0.0);
+      continue;
+    }
+    const T* ang = k.cdof[j];
+    T v[3];
+    cross(ang, rel, v);
+    for (int a = 0; a < 3; ++a) v[a] = k.cdof[j][3 + a] + v[a];
+    Jn[j] = -dot3(n, v);
+    Jt1[j] = -dot3(t1, v);
+    Jt2[j] = -dot3(t2, v);
+  }
 }
 
 // ------------------------------------------------------- solver

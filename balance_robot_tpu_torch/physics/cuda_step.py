@@ -7,7 +7,8 @@ kernel's signature.
 
 `control_step(qpos, qvel, ws, ctrl, friction, params)` launches the kernel
 for CUDA tensors and runs the plain version for CPU tensors: the device of
-the state decides, and a CUDA call that cannot build or launch raises.
+the state decides, and a CUDA call that cannot build or launch raises. A
+scene with walls goes to K3 (`cuda_move.py`) instead of K1.
 
 The kernel is built at first use with `nvcc` into `build/torch_kernels/`
 at the repository root, as a shared library with a plain C interface
@@ -44,7 +45,14 @@ def control_step(qpos, qvel, ws, ctrl, friction, params, frame_skip=250):
     """One control step of B envs: qpos (B,9), qvel (B,8), ws (B,8), ctrl
     (B,2), friction (B,) or None -> (qpos', qvel', ws').
 
-    CUDA tensors launch K1; CPU tensors take the plain version."""
+    CUDA tensors launch K1 and CPU tensors take the plain version; a scene
+    with walls goes to K3's wrapper, which decides likewise (it takes no
+    friction)."""
+    if params.walls:
+        # imported here: cuda_move builds on this module
+        from . import cuda_move
+        return cuda_move.control_step_walls(qpos, qvel, ws, ctrl, params,
+                                            frame_skip)
     if qpos.is_cuda:
         return control_step_cuda(qpos, qvel, ws, ctrl, friction, params,
                                  frame_skip)
@@ -161,6 +169,9 @@ def check_kernel_args(kernel, ref, args):
 def control_step_cuda(qpos, qvel, ws, ctrl, friction, params, frame_skip=250):
     """Launch K1 on the current stream; CUDA tensors only."""
     global launches
+    if params.walls:
+        raise ValueError("K1 has no wall contacts: a scene with walls runs "
+                         "K3 (cuda_move)")
     B = qpos.shape[0]
     use_friction = friction is not None and params.dynamic_friction
     args = [("qpos", qpos, (B, 9)), ("qvel", qvel, (B, 8)),

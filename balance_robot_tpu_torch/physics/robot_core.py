@@ -68,7 +68,7 @@ class RobotSceneParams:
         invweight=1.2709072512005732)
     # env02: wheel friction taken from env state instead of the pair value
     dynamic_friction: bool = False
-    # static wall boxes of the corridor scene (not ported yet)
+    # static wall boxes ((centre), (half-extents)) of the corridor scene
     walls: tuple = ()
     wall_contact: ContactParams = ContactParams(
         solref=(0.02, 1.0), solimp=(0.9, 0.95, 0.001, 0.5, 2.0),

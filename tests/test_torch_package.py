@@ -1,7 +1,7 @@
 """The port's package rules: no JAX, CUDA by default, device dispatch.
 
 Runs anywhere: without a GPU the entry points must raise unless the CPU is
-asked for, and the kernels' wrappers (K1, K2) must take the plain version
+asked for, and the kernels' wrappers (K1, K2, K3) must take the plain version
 for CPU tensors and never fall back to it for CUDA ones. The tests that
 need the card are marked `cuda` and skip without it.
 """
@@ -19,9 +19,13 @@ import torch
 
 import balance_robot_tpu_torch as brt
 from balance_robot_tpu_torch.envs.vector import VecEnv
+from balance_robot_tpu_torch.envs.move import MOVE05_PARAMS
+from balance_robot_tpu_torch.models import mlp
 from balance_robot_tpu_torch.physics import block_step as bs
-from balance_robot_tpu_torch.physics import cuda_block, cuda_step, fast_solver
+from balance_robot_tpu_torch.physics import cuda_block, cuda_move, cuda_step
+from balance_robot_tpu_torch.physics import fast_solver
 from balance_robot_tpu_torch.physics import robot_core as rc
+from balance_robot_tpu_torch.train import checkpoint
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -39,7 +43,8 @@ def _imported_modules(path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(PORT_FILES) > 22
-    assert {"env03.py", "cuda_block.py", "kernel_build.py"} <= {
+    assert {"env03.py", "cuda_block.py", "kernel_build.py", "cuda_move.py",
+            "move.py", "cal01.py", "quant.py", "pipeline.py"} <= {
         p.name for p in PORT_FILES}
     for path in PORT_FILES:
         for mod in _imported_modules(path):
@@ -49,13 +54,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_registry_has_the_ported_ids():
-    assert brt.env_ids() == ["Env01-v1", "Env01-v2", "Env01-v3", "Env02-v1",
-                             "Env03-v1", "Env03-v1-fail", "Env03-v2"]
+    assert brt.env_ids() == ["Cal01", "Env01-v1", "Env01-v2", "Env01-v3",
+                             "Env02-v1", "Env03-v1", "Env03-v1-fail",
+                             "Env03-v2", "EnvMove05-v1"]
     with pytest.raises(KeyError):
-        brt.make("EnvMove05-v1", device="cpu")
+        brt.make("EnvMove06-v1", device="cpu")
 
 
-@pytest.mark.parametrize("env_id", ["Env01-v2", "Env03-v2"])
+@pytest.mark.parametrize("env_id", ["Env01-v2", "Env03-v2", "EnvMove05-v1",
+                                    "Cal01"])
 def test_entry_points_need_cuda_unless_the_cpu_is_asked_for(monkeypatch,
                                                             env_id):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -119,6 +126,116 @@ def test_cpu_tensors_take_the_plain_version_k2(monkeypatch):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+def wall_states(B, seed=0):
+    """chip_smoke.py's robot states in every wall-contact regime, as float64
+    CPU tensors qpos (B,9), qvel (B,8), ctrl (B,2)."""
+    import numpy as np
+    import chip_smoke
+    return tuple(torch.tensor(x) for x in chip_smoke.random_states_walls(
+        np.random.default_rng(seed), B))
+
+
+def test_cpu_tensors_take_the_plain_version_k3(monkeypatch):
+    """Both the K3 wrapper and the envs' entry `cuda_step.control_step`
+    send a wall scene on CPU tensors to the plain wall physics."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a kernel launched for CPU tensors")
+
+    monkeypatch.setattr(cuda_move, "control_step_walls_cuda", refuse)
+    monkeypatch.setattr(cuda_step, "control_step_cuda", refuse)
+    monkeypatch.setattr(cuda_move, "launches", 0)
+    qpos, qvel, ctrl = wall_states(6)
+    ws = torch.zeros_like(qvel)
+    seen = {}
+    ref = cuda_move.control_step_walls_plain(qpos, qvel, ws, ctrl,
+                                             MOVE05_PARAMS, frame_skip=2,
+                                             contact_counts=seen)
+    assert sum(int(v.sum()) for v in seen.values()) > 0
+    for out in (cuda_move.control_step_walls(qpos, qvel, ws, ctrl,
+                                             MOVE05_PARAMS, frame_skip=2),
+                cuda_step.control_step(qpos, qvel, ws, ctrl, None,
+                                       MOVE05_PARAMS, frame_skip=2)):
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert cuda_move.launches == 0
+    # the walls matter: the flat-floor scene moves these states elsewhere
+    flat = cuda_step.control_step(qpos, qvel, ws, ctrl, None,
+                                  rc.ENV01_PARAMS, frame_skip=2)
+    assert not torch.equal(flat[1], ref[1])
+
+
+class FakeCudaTensor:
+    """Stands for a CUDA tensor where there is no card: it has what the
+    dispatch and the kernels' argument check read, and no data."""
+    is_cuda = True
+    device = torch.device("cuda:0")
+
+    def __init__(self, *shape, dtype=torch.float32, contiguous=True):
+        self.shape, self.dtype, self._contiguous = shape, dtype, contiguous
+
+    def is_contiguous(self):
+        return self._contiguous
+
+
+def test_a_wall_scene_on_cuda_tensors_goes_to_k3(monkeypatch):
+    """`cuda_step.control_step` dispatches by the scene and the device."""
+    calls = []
+    monkeypatch.setattr(cuda_move, "control_step_walls_cuda",
+                        lambda *a, **k: calls.append("K3"))
+    monkeypatch.setattr(cuda_step, "control_step_cuda",
+                        lambda *a, **k: calls.append("K1"))
+    x = FakeCudaTensor(2, 9)
+    cuda_step.control_step(x, None, None, None, None, MOVE05_PARAMS)
+    cuda_step.control_step(x, None, None, None, None, rc.ENV01_PARAMS)
+    cuda_move.control_step_walls(x, None, None, None, MOVE05_PARAMS)
+    assert calls == ["K3", "K1", "K3"]
+
+
+def test_k3_wrapper_refuses_what_the_kernel_does_not_take():
+    cpu = [torch.zeros(2, 9), torch.zeros(2, 8), torch.zeros(2, 8),
+           torch.zeros(2, 2)]
+    with pytest.raises(ValueError, match="K3.*CUDA"):
+        cuda_move.control_step_walls_cuda(*cpu, MOVE05_PARAMS)
+
+    def args(**replaced):
+        shapes = dict(qpos=(2, 9), qvel=(2, 8), ws=(2, 8), ctrl=(2, 2))
+        out = {k: FakeCudaTensor(*v) for k, v in shapes.items()}
+        out.update(replaced)
+        return list(out.values())
+
+    for bad, match in (
+            (dict(qvel=FakeCudaTensor(2, 14)), "K3: qvel must have shape"),
+            (dict(ctrl=FakeCudaTensor(3, 2)), "K3: ctrl must have shape"),
+            (dict(ws=FakeCudaTensor(2, 8, dtype=torch.float64)),
+             "K3: ws must be float32 or float64 like qpos"),
+            (dict(qpos=FakeCudaTensor(2, 9, dtype=torch.float16)),
+             "K3: qpos must be float32 or float64"),
+            (dict(qvel=FakeCudaTensor(2, 8, contiguous=False)),
+             "K3: qvel must be contiguous")):
+        with pytest.raises(ValueError, match=match):
+            cuda_move.control_step_walls_cuda(*args(**bad), MOVE05_PARAMS)
+    five = rc.RobotSceneParams(walls=MOVE05_PARAMS.walls
+                               + (MOVE05_PARAMS.walls[0],))
+    with pytest.raises(ValueError, match="at most 4 walls"):
+        cuda_move.control_step_walls_cuda(*args(), five)
+    with pytest.raises(ValueError, match="K1 has no wall contacts"):
+        cuda_step.control_step_cuda(*args(), None, MOVE05_PARAMS)
+    assert cuda_move.launches == 0 and cuda_step.launches == 0
+
+
+def test_move05_checkpoint_loads_at_its_own_width():
+    """The outer policy the repo ships for EnvMove05-v1: 10-64-64-2."""
+    net = mlp.from_numpy_params(checkpoint.load(
+        ROOT / "models/EnvMove05-v1_PPO_r4/best_model.npz"), device="cpu")
+    env = brt.make("EnvMove05-v1", device="cpu")
+    _, obs = env.reset(5)
+    assert obs.shape == (5, env.obs_dim) == (5, 10)
+    mean, _, value = net(obs)
+    assert mean.shape == (5, 2) and value.shape[0] == 5
+    assert torch.isfinite(mean).all()
+    assert net.policy_mean(obs).shape == (5, 2)
+
+
 def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
     x = torch.zeros(2, 9)
     with pytest.raises(ValueError, match="CUDA"):
@@ -137,8 +254,10 @@ def test_kernel_module_imports_and_builds_lazily():
     nothing; the kernel's struct mirrors the scene parameters."""
     code = ("import balance_robot_tpu_torch.physics.cuda_step as m; "
             "import balance_robot_tpu_torch.physics.cuda_block as m2; "
+            "import balance_robot_tpu_torch.physics.cuda_move as m3; "
             "assert m._lib is None and m.launches == 0; "
-            "assert m2._lib is None and m2.launches == 0")
+            "assert m2._lib is None and m2.launches == 0; "
+            "assert m3._lib is None and m3.launches == 0")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300,
                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
@@ -154,6 +273,17 @@ def test_kernel_module_imports_and_builds_lazily():
     assert p14.block_floor.k == 1.0 / (0.95 * 0.95 * 0.0125 * 0.0125
                                        * 0.95 * 0.95)
     assert p14.block_half == 0.02 and p14.block_margin == 0.002
+    pw = cuda_move.kernel_params(fast_solver(MOVE05_PARAMS))
+    assert pw.n_walls == 4 and pw.robot.wheel.mu1 == 0.9
+    assert [list(w) for w in pw.walls] == [
+        list(c) + list(h) for c, h in MOVE05_PARAMS.walls]
+    # one wall_contact, two invweights: dA = 2 mu^2 (1 + mu^2) invweight
+    assert pw.wall_chassis.invweight == 1.2709072512005732
+    assert pw.wall_wheel.invweight == 3.3757186541109845
+    assert pw.wall_chassis.dA1 == 4.0 * 1.2709072512005732
+    assert pw.wall_wheel.dA2 == 4.0 * 3.3757186541109845
+    assert pw.wall_wheel.k == pw.wall_chassis.k == 1.0 / (
+        0.95 * 0.95 * 0.02 * 0.02 * 1.0 * 1.0)
 
 
 @pytest.mark.cuda
@@ -219,3 +349,49 @@ def test_k2_matches_plain_on_the_card():
     out = cuda_block.control_step14(*args, fast_solver(bs.ENV03_PARAMS))
     torch.cuda.synchronize()
     assert all(torch.isfinite(t).all() for t in out)
+
+
+@pytest.mark.cuda
+def test_k3_matches_plain_on_the_card():
+    """K3 against its plain version on the GPU (float64, ragged batch, a
+    short control step at both solver grades, every wall contact kind
+    active), a float32 launch at the serving batch, and the refusals that
+    need real CUDA tensors."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc to build K3)")
+    from balance_robot_tpu_torch.physics import step as st
+    B = 61
+    qpos, qvel, ctrl = wall_states(B)
+    for params in (MOVE05_PARAMS, fast_solver(MOVE05_PARAMS)):
+        args = [t.cuda() for t in (qpos, qvel, torch.zeros_like(qvel), ctrl)]
+        before = cuda_move.launches
+        out = cuda_step.control_step(*args, None, params, frame_skip=40)
+        assert cuda_move.launches == before + 1
+        seen = {}
+        ref = cuda_move.control_step_walls_plain(*args, params,
+                                                 frame_skip=40,
+                                                 contact_counts=seen)
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9)
+        assert set(seen) == set(st.WALL_CONTACT_KINDS)
+        assert all(int(v.sum()) > 0 for v in seen.values()), seen
+    print(json.dumps(cuda_move.build_info["resources"]))
+    with pytest.raises(ValueError, match="K3: qvel must have shape"):
+        cuda_move.control_step_walls_cuda(args[0], args[0], args[2], args[3],
+                                          MOVE05_PARAMS)
+    with pytest.raises(ValueError, match="K3: ctrl must be float32 or"):
+        cuda_move.control_step_walls_cuda(*args[:3], args[3].float(),
+                                          MOVE05_PARAMS)
+    qpos, qvel, ctrl = wall_states(4096, seed=1)
+    args = [t.float().cuda() for t in (qpos, qvel, torch.zeros_like(qvel),
+                                       ctrl)]
+    out = cuda_move.control_step_walls(*args, fast_solver(MOVE05_PARAMS))
+    ref = cuda_move.control_step_walls_plain(*args,
+                                             fast_solver(MOVE05_PARAMS))
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(t).all() for t in out)
+    kind = torch.arange(4096) % 6
+    for name, a, b in zip(("qpos", "qvel", "ws"), out, ref):
+        d = (a - b).abs().max(1).values.cpu()
+        print(name, "f32 drift by kind",
+              [float(d[kind == i].max()) for i in range(6)])
