@@ -20,11 +20,10 @@ Phases, in order; any failure exits non-zero before the final line:
      steps, a few Env02-v1 steps (K1's friction branch); 2 x 512 fresh
      Env03-v2 episodes at the exact solver grade over the full 1200-step
      horizon (--serve03-steps cuts the depth), a few Env03-v1 and
-     Env03-v1-fail steps; 2 x 256 fresh EnvMove05-v1 episodes at the exact
-     grade over the full 700-step horizon, once with the port's float32
-     policy and once with the policy's products at bfloat16 operand
-     precision (see SURVIVAL_MOVE_FLOOR), a few Cal01 steps, and the int8
-     inner policy on the card against the CPU;
+     Env03-v1-fail steps; 2 x 256 fresh EnvMove05-v1 episodes over the full
+     700-step horizon at the fast and at the exact grade, held to the JAX
+     package's float32 return (see RETURN_MOVE_JAX), a few Cal01 steps, and
+     the int8 inner policy on the card against the CPU;
   6. times: K1, K2 and K3 and their plain versions at B = 4096 on the main
      paths' states, against each kernel's bound.
 It ends with one JSON line per the contract: {"ok": true, "device": ...}.
@@ -56,20 +55,27 @@ TIMED_LAUNCHES = 11
 SERVE_MOVE_EPISODES = 256   # per draw; the two draws run as one batch of 512
 SERVE_MOVE_DRAWS = 2
 SERVE_MOVE_SEED = 2001
-# models/EnvMove05-v1_PPO_r4 over the full 700-step horizon, exact solver
-# grade, deterministic: the JAX package records 98.8% / 99.6% survival and
-# returns 1073.1 / 1064.7 on two draws of 256; 900 is the env's registered
-# reward threshold. Survival is held to its floor on the port's own float32
-# policy. The return is not comparable there: the reward's speed term is
-# 0.03 (ws - tws) / tws with tws = 20 * the policy's previous action, which
-# this policy holds near 0.001, so its return hangs on the 4th digit of the
-# policy's output, and the recorded figures were taken (and the policy was
-# trained) where a float32 matrix product rounds its operands to bfloat16.
-# The return floor is therefore held on a second evaluation whose policy
-# products round their operands the same way; the float32 return is printed
-# beside it (PERF.md has both and the float64 trajectory check behind this).
+# models/EnvMove05-v1_PPO_r4 over the full 700-step horizon, deterministic.
+# The JAX package records 98.8% / 99.6% survival and returns 1073.1 / 1064.7
+# on two draws of 256 (runs/move_r5_pooled.log), taken where the backend's
+# default precision rounds the operands of a float32 matrix product to
+# bfloat16. The reward's speed term is 0.03 (ws - tws) / tws with tws = 20 x
+# the policy's previous action, which this policy holds near 0.001, so its
+# return hangs on the 4th digit of the policy's output. The same JAX
+# evaluation on the same 2 x 256 start states with float32 products kept in
+# float32, as the port keeps them, returns RETURN_MOVE_JAX (mean, standard
+# error; `tools/move_reference_cpu.py`, exact grade, on a CPU;
+# `runs/move_cpu_reference.log`), and 1056 on the first 256 of them with the
+# policy's operands rounded to bfloat16.
+# The port's return, through its own `policy_mean`, is held to within 3
+# standard errors (this run's and that one's combined) of that figure, and
+# survival to its floor. The env's registered reward threshold is printed
+# beside it: neither package reaches it in float32.
 SURVIVAL_MOVE_FLOOR = 0.95
-RETURN_MOVE_FLOOR = 900.0
+RETURN_MOVE_JAX = (845.35, 24.46)
+RETURN_MOVE_REGISTERED = 900.0
+# share of int8 outputs that may differ by 1 LSB between two correct tanh's
+INT8_TANH_SHARE = 128 * 2 * 128 * 2.0 ** -22
 POLICY = "models/Env01-v2_PPO/best_model.npz"
 POLICY03 = "models/Env03-v2_r2i/best_model.npz"
 POLICY_MOVE = "models/EnvMove05-v1_PPO_r4/best_model.npz"
@@ -648,58 +654,48 @@ def main():
         few_steps("Env03-v1", policy03, 8)
         few_steps("Env03-v1-fail", policy03, 9)
 
-        # ---- 5c. serving, EnvMove05-v1 at the exact grade, as `cli test`
-        # serves it; then Cal01 and the int8 inner policy card vs CPU
-        def bf16_operands(x):
-            return x.to(torch.bfloat16).to(torch.float32)
-
-        weights_move = {key: torch.tensor(v, device="cuda")
-                        for key, v in checkpoint.load(POLICY_MOVE).items()}
-
-        def act_bf16_products(net, o):
-            """clip(policy_mean) of the 10-64-64-2 actor with every matrix
-            product's operands rounded to bfloat16 and float32 sums."""
-            w = weights_move
-            h = o
-            for layer in ("1", "2"):
-                h = torch.tanh(bf16_operands(h) @ bf16_operands(
-                    w[f"pi_w{layer}"]) + w[f"pi_b{layer}"])
-            return (bf16_operands(h) @ bf16_operands(w["pi_wout"])
-                    + w["pi_bout"]).clamp(-1.0, 1.0)
-
+        # ---- 5c. serving, EnvMove05-v1 at both solver grades; then Cal01
+        # and the int8 inner policy card vs CPU
         n_move = SERVE_MOVE_DRAWS * SERVE_MOVE_EPISODES
-        served_move = {}
-        for label, act_fn in (("float32 policy", act),
-                              ("bfloat16-operand policy products",
-                               act_bf16_products)):
+        for grade in ("fast", "exact"):
+            move_env = brt.make("EnvMove05-v1", seed=SERVE_MOVE_SEED)
+            if grade == "fast":
+                move_env.use_fast_solver()
+            horizon = move_env.max_episode_steps
             before = cuda_move.launches
-            ev = ChunkedEvaluator(brt.make("EnvMove05-v1",
-                                           seed=SERVE_MOVE_SEED), act_fn)
-            horizon = ev.env.max_episode_steps
             t0 = time.perf_counter()
-            rets_m, lens_m = ev.evaluate_detail(policy_move, n_move)
+            rets_m, lens_m = ChunkedEvaluator(move_env, act).evaluate_detail(
+                policy_move, n_move)
             seconds = time.perf_counter() - t0
             check(np.isfinite(rets_m).all(),
-                  f"EnvMove05-v1 serving ({label}): non-finite return")
+                  f"EnvMove05-v1 serving ({grade}): non-finite return")
             alive = lens_m >= horizon
-            served_move[label] = (float(alive.mean()), float(rets_m.mean()))
+            mean_ret = float(rets_m.mean())
+            se = float(rets_m.std(ddof=1) / np.sqrt(n_move))
+            reach = 3.0 * float(np.hypot(se, RETURN_MOVE_JAX[1]))
             print(f"serving: {SERVE_MOVE_DRAWS} x {SERVE_MOVE_EPISODES} "
                   f"EnvMove05-v1 episodes (models/EnvMove05-v1_PPO_r4, "
-                  f"{label}, exact solver, int8 inner policy, one batch of "
+                  f"{grade} solver, int8 inner policy, one batch of "
                   f"{n_move}), full horizon {horizon} steps, in "
                   f"{seconds:.1f} s with {cuda_move.launches - before} K3 "
                   f"launches: survival pooled {alive.mean():.4f}, draws "
                   f"{[float(x.mean()) for x in np.split(alive, 2)]}, mean "
-                  f"return pooled {rets_m.mean():.2f}, draws "
+                  f"return pooled {mean_ret:.2f} (s.e. {se:.2f}), draws "
                   f"{[float(x.mean()) for x in np.split(rets_m, 2)]}, "
                   f"median {np.median(rets_m):.2f}, mean length "
-                  f"{lens_m.mean():.1f}")
+                  f"{lens_m.mean():.1f}; the JAX package in float32 returns "
+                  f"{RETURN_MOVE_JAX[0]} (s.e. {RETURN_MOVE_JAX[1]}), so "
+                  f"the band is +-{reach:.1f}; the env's registered "
+                  f"threshold of {RETURN_MOVE_REGISTERED:.0f} is "
+                  f"{'' if mean_ret >= RETURN_MOVE_REGISTERED else 'not '}"
+                  "reached")
             check(alive.mean() >= SURVIVAL_MOVE_FLOOR,
                   f"EnvMove05-v1 full-horizon survival {alive.mean():.4f} "
-                  f"({label}) < {SURVIVAL_MOVE_FLOOR}")
-        check(served_move["bfloat16-operand policy products"][1]
-              >= RETURN_MOVE_FLOOR,
-              f"EnvMove05-v1 mean return {served_move} < {RETURN_MOVE_FLOOR}")
+                  f"({grade}) < {SURVIVAL_MOVE_FLOOR}")
+            check(abs(mean_ret - RETURN_MOVE_JAX[0]) <= reach,
+                  f"EnvMove05-v1 mean return {mean_ret:.2f} ({grade}) is "
+                  f"more than {reach:.1f} from the JAX package's float32 "
+                  f"return {RETURN_MOVE_JAX[0]}")
 
         cal = brt.make("Cal01").use_fast_solver()
         s, o = cal.reset(SERVE_EPISODES)
@@ -720,10 +716,15 @@ def main():
         # exact on both devices; only tanh comes from each device's own
         # library and may differ in its last bits, which moves an int8
         # output by one step where tanh * 128 sits on a rounding boundary.
-        # So: with the CPU's tanh the card must agree on every output, and
-        # with its own on all but a few, by 1 LSB (0 and 13 of 8192 measured
-        # on two hosts with an H100 80GB HBM3, CUDA 12.8: the CPU's tanh
-        # differs between hosts; the bound is 4x the larger share)
+        # So the deciding check is that with the CPU's tanh the card agrees
+        # on every output. With each device's own tanh no output may differ
+        # by more than 1 LSB, and the share that differs is held to what two
+        # correct tanh's can cause: they differ by at most 2^-22 (4 ulp at
+        # 1), so tanh x 128 rounds to the other side of a boundary with
+        # probability 2 x 128 x 2^-22 per activation, and 128 hidden
+        # activations stand behind each output: 0.78% (0 and 13 of 8192
+        # outputs measured on two hosts with an H100 80GB HBM3, CUDA 12.8:
+        # the CPU's tanh differs between hosts)
         from unittest import mock
         inner_obs = torch.tensor(np.random.default_rng(11).uniform(
             -3, 3, (N_ENVS, 6)).astype(np.float32))
@@ -743,7 +744,8 @@ def main():
               f"{lsb.numel()} int8 outputs with one tanh; with each device's "
               f"own tanh {n_diff} differ, by at most {lsb.max().item():.2f} "
               "LSB")
-        check(lsb.max().item() <= 1.001 and n_diff <= 0.0064 * lsb.numel(),
+        check(lsb.max().item() <= 1.001
+              and n_diff <= INT8_TANH_SHARE * lsb.numel(),
               "the int8 policy disagrees between the card and the CPU")
 
         # ---- 6. times at B = 4096, the main paths' inputs
@@ -791,6 +793,20 @@ def main():
         measure("K3", cuda_move, cuda_move.control_step_walls_cuda,
                 cuda_move.control_step_walls_plain, (qpos, qvel, ws, ctrl),
                 (env_move.params,), K3_F32_TOL, True)
+        # no env of the main path touches a wall (phase 4 prints the count),
+        # so the K3 time above is for floor rows only: time it once more
+        # with every env at a wall
+        at_wall = [torch.tensor(x, dtype=torch.float32, device="cuda")
+                   for x in random_states_walls(np.random.default_rng(5),
+                                                N_ENVS)]
+        at_wall.insert(2, torch.zeros_like(at_wall[1]))
+        wall_ms = time_kernel(lambda: cuda_move.control_step_walls_cuda(
+            *at_wall, env_move.params))
+        wall_ops = float(np.mean(cuda_move.count_ops(
+            *(t[sample].cpu() for t in at_wall), env_move.params)[0]))
+        print(f"K3 B={N_ENVS} f32 fast with every env at a wall: median "
+              f"{wall_ms:.3f} ms over {TIMED_LAUNCHES} launches; "
+              f"{wall_ops:.0f} ops/env/control step")
 
         for name, k_ms, plain_ms, ops, b in report:
             print(f"{name} B={N_ENVS} f32 fast: median {k_ms:.3f} ms over "

@@ -327,14 +327,14 @@ def test_slice_move05_deterministic_policy(x64):
     assert np.abs(np.asarray(ja)).max() > 0.05
 
 
-@pytest.mark.slow
-def test_move05_long_rollout_matches_jax(x64, tmp_path):
-    """300 control steps of closed-loop serving at the exact grade, float64:
-    the port (its physics run by kernel K3's own source, compiled for the
-    host) against the JAX env, both under the checked-in outer policy in
-    float32. The return of this policy hangs on the 4th digit of its
-    output, so equal returns over a long horizon are the evidence that the
-    port serves it as the JAX package does. About 5 minutes on a CPU."""
+def closed_loop_rollout(tmp_path, B, T):
+    """T control steps (250 substeps each) of closed-loop serving at the
+    exact grade, float64: the port (its physics run by kernel K3's own
+    source, compiled for the host) against the JAX env, both under the
+    checked-in outer policy in float32. The return of this policy hangs on
+    the 4th digit of its output, so equal returns over many steps are the
+    evidence that the port serves it as the JAX package does. Returns both
+    sides' per-episode returns."""
     import shutil
     import subprocess
     from balance_robot_tpu_torch.physics import kernel_build
@@ -346,7 +346,6 @@ def test_move05_long_rollout_matches_jax(x64, tmp_path):
                     "-o", str(so), str(kernel_build.CSRC / cuda_move.SOURCE)],
                    check=True)
     lib = cuda_move._bind(so)
-    B, T = 4, 300
     d = checkpoint.load(POLICY)
     jd = {k: jnp.asarray(v, jnp.float32) for k, v in d.items()}
     net = mlp.from_numpy_params(d, dtype=torch.float32)
@@ -382,6 +381,19 @@ def test_move05_long_rollout_matches_jax(x64, tmp_path):
     # near 0.001, and on the reward's spikes the reward goes as 1 / output
     np.testing.assert_allclose(ret, jret, rtol=1e-4)
     print("returns after", T, "steps: port", ret, "JAX", jret)
+    return ret, jret
+
+
+def test_move05_closed_loop_rollout_matches_jax(x64, tmp_path):
+    """25 full control steps, 2 episodes: about a minute on a CPU."""
+    ret, _ = closed_loop_rollout(tmp_path, 2, 25)
+    assert ret.min() > 0
+
+
+@pytest.mark.slow
+def test_move05_long_rollout_matches_jax(x64, tmp_path):
+    """300 control steps, 4 episodes: about 5 minutes on a CPU."""
+    ret, _ = closed_loop_rollout(tmp_path, 4, 300)
     assert ret.mean() > 300
 
 
