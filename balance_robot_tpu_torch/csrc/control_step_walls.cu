@@ -174,9 +174,9 @@ BRT_HD void substep(T qpos[9], T qvel[8], T ws[8], const T ctrl[2],
   }
 
   T jar[MAXROW], Jd[MAXROW];
-  solve_and_integrate<T, NV, false>(nrow, J, aref, D, nullptr, jar, Jd, M,
-                                    a_smooth, qfrc_smooth, dfdv, p,
-                                    newton_iters, ls_iters, qvel, ws);
+  solve_and_integrate<T, NV>(nrow, J, aref, D, jar, Jd, M, a_smooth,
+                             qfrc_smooth, dfdv, p, newton_iters, ls_iters,
+                             qvel, ws);
   integrate_robot(qpos, qvel, T(p.timestep));
 }
 

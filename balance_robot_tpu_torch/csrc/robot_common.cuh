@@ -6,13 +6,24 @@
 // host-only `Counted`) and, where the size matters, on the number of dofs
 // NV. The same code compiles as plain C++: a kernel's `*_count_ops` entry
 // point runs it on the host with `Counted`, a double that counts every
-// arithmetic operation.
+// arithmetic operation, and with a team of one lane, where every
+// warp-level call is compiled out.
 //
-// Contents: math wrappers, 3-vector / spatial algebra, an N x N Cholesky,
-// the robot's smooth dynamics (fk, com_vel, CRB, RNE, actuation), the floor
+// Contents: math wrappers, 3-vector / spatial algebra, an N x N Cholesky
+// (unrolled, so that with compile-time indices it lives in registers), the
+// robot's smooth dynamics (fk, com_vel, CRB, RNE, actuation), the floor
 // colliders (plane-cylinder, plane-box), the solver impedance, the pyramid
-// row emitter, and the Newton solver with its exact line search followed by
-// the implicitfast velocity update.
+// row emitter (to any row store), and two solvers of the same algorithm
+// (Newton with an exact line search, then the implicitfast velocity
+// update):
+// - solve_and_integrate: one thread per env, rows in per-thread arrays
+//   (K3, unchanged since its port);
+// - team_solve: a team of G lanes of one warp per env, rows in shared
+//   memory (TeamRows), row loops split over the lanes with shuffle sums,
+//   the Newton Hessian and gradient split by entry, and M's and H's block
+//   structure used for K2's 14 dofs (K1, K2). What bounds it is the
+//   serial chain that stays on every lane: each kernel's note gives its
+//   figures.
 
 #pragma once
 
@@ -59,6 +70,7 @@ struct Params {
 
 // ------------------------------------------------------- operation count
 static long long g_ops = 0;   // host only: read by the *_count_ops entries
+static long long g_coupled = 0;   // host only: 14 x 14 Newton factorizations
 
 BRT_HD void tick() {
 #ifndef __CUDA_ARCH__
@@ -220,15 +232,18 @@ BRT_HD void quat_integrate(T q[4], const T w[3], T h) {
 }
 
 // Cholesky of a symmetric positive definite N x N matrix (lower triangle
-// read) and the two triangular solves. Fully unrolled up to N = 8, where L
-// fits in registers; a rolled outer loop beyond that.
-template <typename T, int N>
-BRT_HD void chol_factor(const T A[N][N], T L[N][N]) {
-#pragma unroll(N <= 8 ? N : 1)
+// read) and the two triangular solves. Fully unrolled, so that with
+// compile-time indices A, L and the vectors live in registers (N <= 14).
+// chol_factor_by reads A(i, j) when it needs it, so that a caller can
+// leave A in shared memory and keep only L in registers.
+template <typename T, int N, class F>
+BRT_HD void chol_factor_by(const F& A, T L[N][N]) {
+#pragma unroll
   for (int i = 0; i < N; ++i) {
-#pragma unroll(N <= 8 ? N : 1)
+#pragma unroll
     for (int j = 0; j <= i; ++j) {
-      T s = A[i][j];
+      T s = A(i, j);
+#pragma unroll
       for (int k = 0; k < j; ++k) s = s - L[i][k] * L[j][k];
       L[i][j] = (i == j) ? Sqrt(s) : s / L[j][j];
     }
@@ -236,17 +251,24 @@ BRT_HD void chol_factor(const T A[N][N], T L[N][N]) {
 }
 
 template <typename T, int N>
+BRT_HD void chol_factor(const T A[N][N], T L[N][N]) {
+  chol_factor_by<T, N>([&](int i, int j) { return A[i][j]; }, L);
+}
+
+template <typename T, int N>
 BRT_HD void chol_solve(const T L[N][N], const T b[N], T x[N]) {
   T y[N];
-#pragma unroll(N <= 8 ? N : 1)
+#pragma unroll
   for (int i = 0; i < N; ++i) {
     T s = b[i];
+#pragma unroll
     for (int k = 0; k < i; ++k) s = s - L[i][k] * y[k];
     y[i] = s / L[i][i];
   }
-#pragma unroll(N <= 8 ? N : 1)
+#pragma unroll
   for (int i = N - 1; i >= 0; --i) {
     T s = y[i];
+#pragma unroll
     for (int k = i + 1; k < N; ++k) s = s - L[k][i] * x[k];
     x[i] = s / L[i][i];
   }
@@ -486,14 +508,26 @@ BRT_HD void robot_smooth(const T qpos[9], const T* qvel, const T ctrl[2],
 }
 
 // ------------------------------------------------------- pyramid rows
+// Where the rows go. A row store R has J(row, j), aref(row) and D(row).
+// RowArrays: per-thread arrays, row-major (K3). TeamRows (below): one env's
+// rows in shared memory, column-major (K1, K2).
+template <typename T, int NV>
+struct RowArrays {
+  T (*J_)[NV];
+  T* aref_;
+  T* D_;
+  BRT_HD T& J(int r, int j) const { return J_[r][j]; }
+  BRT_HD T& aref(int r) const { return aref_[r]; }
+  BRT_HD T& D(int r) const { return D_[r]; }
+};
+
 // The 4 rows (mu1,+), (mu1,-), (mu2,+), (mu2,-) of one contact, from its
 // point Jacobian along the normal (Jn) and the two tangents (Jt1, Jt2),
 // written at rows r .. r+3.
-template <typename T, int NV>
-BRT_HD void emit_rows(int r, const T Jn[NV], const T Jt1[NV],
+template <typename T, int NV, class R>
+BRT_HD void emit_rows(const R& rows, int r, const T Jn[NV], const T Jt1[NV],
                       const T Jt2[NV], T dist, T mu1, T mu2, T dA1, T dA2,
-                      const ContactP& prm, const T* qvel, T (*J)[NV],
-                      T* aref, T* D) {
+                      const ContactP& prm, const T* qvel) {
   T imp = impedance(dist, prm);
   T stiff = T(prm.k) * imp * dist;
   for (int d = 0; d < 2; ++d) {
@@ -507,24 +541,34 @@ BRT_HD void emit_rows(int r, const T Jn[NV], const T Jt1[NV],
       T smu = sg ? -mu : mu;
       T vel = T(0.0);
       for (int j = 0; j < NV; ++j) {
-        J[row][j] = Jn[j] + smu * Jt[j];
-        vel = vel + J[row][j] * qvel[j];
+        T Jj = Jn[j] + smu * Jt[j];
+        rows.J(row, j) = Jj;
+        vel = vel + Jj * qvel[j];
       }
-      aref[row] = T(-prm.b) * vel - stiff;
-      D[row] = Dv;
+      rows.aref(row) = T(-prm.b) * vel - stiff;
+      rows.D(row) = Dv;
     }
   }
+}
+
+template <typename T, int NV>
+BRT_HD void emit_rows(int r, const T Jn[NV], const T Jt1[NV],
+                      const T Jt2[NV], T dist, T mu1, T mu2, T dA1, T dA2,
+                      const ContactP& prm, const T* qvel, T (*J)[NV],
+                      T* aref, T* D) {
+  emit_rows<T, NV>(RowArrays<T, NV>{J, aref, D}, r, Jn, Jt1, Jt2, dist, mu1,
+                   mu2, dA1, dA2, prm, qvel);
 }
 
 // Rows of one floor contact of robot body `body` (0 chassis, 1 left wheel,
 // 2 right wheel) at `cpos`, in the constant floor frame
 // (n, t1, t2) = ((0,0,1), (0,1,0), (-1,0,0)). Columns beyond the robot's 8
 // dofs are zero.
-template <typename T, int NV>
-BRT_HD void robot_floor_rows(int r, const T cpos[3], T dist, int body, T mu1,
-                             T mu2, T dA1, T dA2, const ContactP& prm,
-                             const RobotKin<T>& k, const T* qvel, T (*J)[NV],
-                             T* aref, T* D) {
+template <typename T, int NV, class R>
+BRT_HD void robot_floor_rows(const R& rows, int r, const T cpos[3], T dist,
+                             int body, T mu1, T mu2, T dA1, T dA2,
+                             const ContactP& prm, const RobotKin<T>& k,
+                             const T* qvel) {
   T Jn[NV], Jt1[NV], Jt2[NV];
   T rel[3];
   for (int a = 0; a < 3; ++a) rel[a] = cpos[a] - k.com[a];
@@ -543,8 +587,17 @@ BRT_HD void robot_floor_rows(int r, const T cpos[3], T dist, int body, T mu1,
       Jn[j] = Jt1[j] = Jt2[j] = T(0.0);
     }
   }
-  emit_rows<T, NV>(r, Jn, Jt1, Jt2, dist, mu1, mu2, dA1, dA2, prm, qvel, J,
-                   aref, D);
+  emit_rows<T, NV>(rows, r, Jn, Jt1, Jt2, dist, mu1, mu2, dA1, dA2, prm,
+                   qvel);
+}
+
+template <typename T, int NV>
+BRT_HD void robot_floor_rows(int r, const T cpos[3], T dist, int body, T mu1,
+                             T mu2, T dA1, T dA2, const ContactP& prm,
+                             const RobotKin<T>& k, const T* qvel, T (*J)[NV],
+                             T* aref, T* D) {
+  robot_floor_rows<T, NV>(RowArrays<T, NV>{J, aref, D}, r, cpos, dist, body,
+                          mu1, mu2, dA1, dA2, prm, k, qvel);
 }
 
 // -J of the point `cpos` of robot body `body` (0 chassis, 1 left wheel, 2
@@ -574,16 +627,17 @@ BRT_HD void robot_neg_jac(const T cpos[3], int body, const T n[3],
 }
 
 // ------------------------------------------------------- solver
-// From the rows to the new velocity: warm start chosen by cost, Newton with
-// an exact line search (fixed trip counts), constraint forces, and the
-// implicitfast update qvel += h (M - h D)^-1 qfrc. M's wheel diagonal is
-// overwritten. With MASKED, row r counts only where mask[r] is 1; without,
-// every one of the nrow rows is a live contact row and rows that are
-// inactive at the current iterate are skipped in the Hessian (they add
-// exact zeros).
-template <typename T, int NV, bool MASKED>
+// The serial solver of one thread per env, on rows in per-thread arrays
+// (K3). From the rows to the new velocity: warm start chosen by cost,
+// Newton with an exact line search (fixed trip counts), constraint forces,
+// and the implicitfast update qvel += h (M - h D)^-1 qfrc. M's wheel
+// diagonal is overwritten. Every one of the nrow rows is a live contact
+// row; rows that are inactive at the current iterate are skipped in the
+// Hessian (they add exact zeros). team_solve below is the same algorithm
+// for a team of lanes on rows in shared memory (K1, K2).
+template <typename T, int NV>
 BRT_HD void solve_and_integrate(int nrow, const T (*J)[NV], const T* aref,
-                                const T* D, const T* mask, T* jar, T* Jd,
+                                const T* D, T* jar, T* Jd,
                                 T M[NV][NV], const T a_smooth[NV],
                                 const T qfrc_smooth[NV], const T dfdv[2],
                                 const Params& p, int newton_iters,
@@ -608,7 +662,7 @@ BRT_HD void solve_and_integrate(int nrow, const T (*J)[NV], const T* aref,
         T s = J[r][0] * aa[0];
         for (int j = 1; j < NV; ++j) s = s + J[r][j] * aa[j];
         s = s - aref[r];
-        T act = s < T(0.0) ? (MASKED ? mask[r] : T(1.0)) : T(0.0);
+        T act = s < T(0.0) ? T(1.0) : T(0.0);
         q = q + D[r] * act * s * s;
       }
       cst[pick] = c + T(0.5) * q;
@@ -633,8 +687,8 @@ BRT_HD void solve_and_integrate(int nrow, const T (*J)[NV], const T* aref,
       for (int j = 1; j < NV; ++j) s = s + J[row][j] * a[j];
       s = s - aref[row];
       jar[row] = s;
-      T wgt = D[row] * (s < T(0.0) ? (MASKED ? mask[row] : T(1.0)) : T(0.0));
-      if (MASKED || wgt != T(0.0)) {
+      T wgt = D[row] * (s < T(0.0) ? T(1.0) : T(0.0));
+      if (wgt != T(0.0)) {
         T wj = wgt * s;
         for (int r = 0; r < NV; ++r) {
           g[r] = g[r] + wj * J[row][r];
@@ -673,7 +727,7 @@ BRT_HD void solve_and_integrate(int nrow, const T (*J)[NV], const T* aref,
 #pragma unroll 1
       for (int row = 0; row < nrow; ++row) {
         T jt = jar[row] + t * Jd[row];
-        T act = jt < T(0.0) ? (MASKED ? mask[row] : T(1.0)) : T(0.0);
+        T act = jt < T(0.0) ? T(1.0) : T(0.0);
         T aDJd = act * (D[row] * Jd[row]);
         s1 = s1 + aDJd * jt;
         s2 = s2 + aDJd * Jd[row];
@@ -697,7 +751,7 @@ BRT_HD void solve_and_integrate(int nrow, const T (*J)[NV], const T* aref,
       T s = J[row][0] * a[0];
       for (int j = 1; j < NV; ++j) s = s + J[row][j] * a[j];
       s = s - aref[row];
-      T f = (MASKED ? mask[row] : T(1.0)) * D[row] * Max(-s, T(0.0));
+      T f = T(1.0) * D[row] * Max(-s, T(0.0));
       for (int j = 0; j < NV; ++j) qcon[j] = qcon[j] + f * J[row][j];
     }
     for (int j = 0; j < NV; ++j) qfrc[j] = qfrc[j] + qcon[j];
@@ -714,6 +768,321 @@ BRT_HD void solve_and_integrate(int nrow, const T (*J)[NV], const T* aref,
   }
 }
 
+// ------------------------------------------------------- team solver
+// A team of G lanes (G a power of two <= 32, inside one warp) works on one
+// env. Sums over rows are taken by a butterfly of __shfl_xor_sync on the
+// team's mask; a^b == b^a, so every lane ends with the same bits, and the
+// parts that stay serial (fk, CRB, RNE, the small factorizations) run
+// redundantly on every lane and agree bit for bit. On the host (the
+// `*_count_ops` builds) G is 1 and every team call is the identity.
+template <int G_>
+struct Team {
+  static constexpr int G = G_;
+  int lane;        // 0 .. G-1
+  unsigned mask;   // the team's lanes in its warp
+  template <typename T>
+  BRT_HD T sum(T v) const {
+#ifdef __CUDA_ARCH__
+    if constexpr (G > 1) {
+#pragma unroll
+      for (int o = G / 2; o > 0; o >>= 1)
+        v = v + __shfl_xor_sync(mask, v, o);
+    }
+#endif
+    return v;
+  }
+  BRT_HD bool any(bool b) const {
+#ifdef __CUDA_ARCH__
+    return G > 1 ? __any_sync(mask, b) != 0 : b;
+#else
+    return b;
+#endif
+  }
+  BRT_HD void sync() const {
+#ifdef __CUDA_ARCH__
+    __syncwarp(mask);
+#endif
+  }
+};
+
+// One env's rows and solver scratch, in shared memory on the card (a
+// per-thread array on the host), column-major with an odd column stride:
+// the lanes of a team walk consecutive rows of one column without bank
+// conflicts, and the entry loop reads columns r and c of one row at
+// distinct banks. Columns: J (NV), aref, D, jar (J a - aref), Jd (J step),
+// w (active weight, then the constraint force), then the Hessian's lower
+// triangle and the gradient as the lanes that own them leave them.
+template <typename T, int NV, int MAXROW>
+struct TeamRows {
+  static constexpr int RS = MAXROW + 1;
+  static constexpr int NE = NV * (NV + 1) / 2;
+  static constexpr int JAR = NV + 2;
+  static constexpr int SIZE = (NV + 5) * RS + NE + NV;   // values per env
+  T* base;
+  BRT_HD T& J(int r, int j) const { return base[j * RS + r]; }
+  BRT_HD T& aref(int r) const { return base[NV * RS + r]; }
+  BRT_HD T& D(int r) const { return base[(NV + 1) * RS + r]; }
+  BRT_HD T& jar(int r) const { return base[JAR * RS + r]; }
+  BRT_HD T& Jd(int r) const { return base[(NV + 3) * RS + r]; }
+  BRT_HD T& w(int r) const { return base[(NV + 4) * RS + r]; }
+  BRT_HD T& H(int e) const { return base[(NV + 5) * RS + e]; }
+  // Entry e of the Hessian-and-gradient sum sum_row (w A[row]) B[row], as
+  // the column offsets of A and B: H[r][c] for e < NE (lower triangle, row
+  // by row), g[e - NE] after.
+  BRT_HD static void entry_cols(int e, int& oa, int& ob) {
+    if (e < NE) {
+      int r = 0;
+      while ((r + 1) * (r + 2) / 2 <= e) ++r;
+      oa = r * RS;
+      ob = (e - r * (r + 1) / 2) * RS;
+    } else {
+      oa = JAR * RS;
+      ob = (e - NE) * RS;
+    }
+  }
+};
+
+// M x for the mass matrix of the team kernels: the robot's 8 x 8 block Mr
+// (its lower triangle read, so the upper one need not stay in registers)
+// and, for NV = 14, the block's diagonal m I3, I I3.
+template <typename T, int NV>
+BRT_HD void mass_mul(const T Mr[8][8], T mb, T Ib, const T x[NV], T out[NV]) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    T s = T(0.0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s = s + (j <= r ? Mr[r][j] : Mr[j][r]) * x[j];
+    out[r] = s;
+  }
+#pragma unroll
+  for (int i = 8; i < NV; ++i) out[i] = (i < 11 ? mb : Ib) * x[i];
+}
+
+// (M' x = b) for M' = M with Mr's own factor L8: the robot's 8 dofs by the
+// Cholesky solve, the block's 6 by a division each.
+template <typename T, int NV>
+BRT_HD void mass_solve(const T L8[8][8], T mb, T Ib, const T b[NV], T x[NV]) {
+  chol_solve<T, 8>(L8, b, x);
+#pragma unroll
+  for (int i = 8; i < NV; ++i) x[i] = b[i] / (i < 11 ? mb : Ib);
+}
+
+// step = H^-1 ng for a Newton Hessian H, read as H(r, c) (lower triangle),
+// that is block-diagonal past row 8 when NV = 14: an 8 x 8 and a 6 x 6
+// factorization, unrolled in registers.
+template <typename T, int NV, class F>
+BRT_HD void factor_solve_split(const F& H, const T ng[NV], T step[NV]) {
+  T Lr[8][8];
+  chol_factor_by<T, 8>(H, Lr);
+  chol_solve<T, 8>(Lr, ng, step);
+  if constexpr (NV > 8) {
+    constexpr int NB = NV - 8;
+    T Lb[NB][NB];
+    chol_factor_by<T, NB>([&](int r, int c) { return H(8 + r, 8 + c); }, Lb);
+    chol_solve<T, NB>(Lb, ng + 8, step + 8);
+  }
+}
+
+// solve_and_integrate for a team on TeamRows: the same algorithm with the
+// row loops split over the lanes (row = lane, lane + G, ...) and the
+// Hessian and gradient split by entry: each lane owns entries of the
+// lower triangle of H and of g and walks every active row for them, so no
+// partial Hessian has to be reduced. M is Mr (8 x 8) plus, for NV = 14,
+// the block's diagonal (mb, Ib). Rows from `couple_row` on couple the robot
+// and the block (K2's chassis-block and wheel-block contacts): while none
+// of them is active, H is block-diagonal and is factorized as 8 x 8 and
+// 6 x 6, which gives the bits of the 14 x 14 factorization (its
+// off-block entries are exact zeros). Mr's wheel diagonal is overwritten.
+template <typename T, int NV, int MAXROW, class Tm>
+BRT_HD void team_solve(const Tm& tm, const TeamRows<T, NV, MAXROW>& rw,
+                       int nrow, int couple_row, T Mr[8][8], T mb, T Ib,
+                       const T a_smooth[NV], const T qfrc_smooth[NV],
+                       const T dfdv[2], const Params& p, int newton_iters,
+                       int ls_iters, T* qvel, T* ws) {
+  constexpr int G = Tm::G;
+  constexpr int NE = TeamRows<T, NV, MAXROW>::NE;
+  constexpr int KPL = (NE + NV + G - 1) / G;   // entries per lane
+  const T* base = rw.base;
+  int oa[KPL], ob[KPL];
+#pragma unroll
+  for (int k = 0; k < KPL; ++k) {
+    const int e = tm.lane + k * G;
+    oa[k] = ob[k] = 0;
+    if (e < NE + NV) rw.entry_cols(e, oa[k], ob[k]);
+  }
+
+  // ---- warm start: the better of ws and a_smooth by cost
+  T a[NV];
+  {
+    T cst[2];
+    for (int pick = 0; pick < 2; ++pick) {
+      const T* aa = pick ? a_smooth : ws;
+      T da[NV], Mda[NV];
+#pragma unroll
+      for (int j = 0; j < NV; ++j) da[j] = aa[j] - a_smooth[j];
+      mass_mul<T, NV>(Mr, mb, Ib, da, Mda);
+      T c = T(0.0);
+#pragma unroll
+      for (int r = 0; r < NV; ++r) c = c + T(0.5) * da[r] * Mda[r];
+      T q = T(0.0);
+#pragma unroll 1
+      for (int r = tm.lane; r < nrow; r += G) {
+        T s = rw.J(r, 0) * aa[0];
+#pragma unroll
+        for (int j = 1; j < NV; ++j) s = s + rw.J(r, j) * aa[j];
+        s = s - rw.aref(r);
+        T act = s < T(0.0) ? T(1.0) : T(0.0);
+        q = q + rw.D(r) * act * s * s;
+      }
+      cst[pick] = c + T(0.5) * tm.sum(q);
+    }
+    bool better = cst[0] < cst[1];
+#pragma unroll
+    for (int j = 0; j < NV; ++j) a[j] = better ? ws[j] : a_smooth[j];
+  }
+
+  // ---- Newton with exact line search, fixed trip counts
+  for (int it = 0; it < newton_iters; ++it) {
+    T da[NV], Mda[NV];
+#pragma unroll
+    for (int j = 0; j < NV; ++j) da[j] = a[j] - a_smooth[j];
+    mass_mul<T, NV>(Mr, mb, Ib, da, Mda);
+    bool coupled = false;
+#pragma unroll 1
+    for (int row = tm.lane; row < nrow; row += G) {
+      T s = rw.J(row, 0) * a[0];
+#pragma unroll
+      for (int j = 1; j < NV; ++j) s = s + rw.J(row, j) * a[j];
+      s = s - rw.aref(row);
+      rw.jar(row) = s;
+      T wgt = rw.D(row) * (s < T(0.0) ? T(1.0) : T(0.0));
+      rw.w(row) = wgt;
+      coupled = coupled || (row >= couple_row && wgt != T(0.0));
+    }
+    coupled = tm.any(coupled);
+    tm.sync();
+    T acc[KPL];
+#pragma unroll
+    for (int k = 0; k < KPL; ++k) acc[k] = T(0.0);
+#pragma unroll 1
+    for (int row = 0; row < nrow; ++row) {
+      const T wgt = rw.w(row);
+      if (wgt != T(0.0)) {
+#pragma unroll
+        for (int k = 0; k < KPL; ++k)
+          if (tm.lane + k * G < NE + NV)
+            acc[k] = acc[k] + (wgt * base[oa[k] + row]) * base[ob[k] + row];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < KPL; ++k)
+      if (tm.lane + k * G < NE + NV) rw.H(tm.lane + k * G) = acc[k];
+    tm.sync();
+    // H = M + the lanes' sums, read from shared memory entry by entry as
+    // the factorization needs it: only the factor lives in registers
+    T ng[NV], step[NV];
+#pragma unroll
+    for (int r = 0; r < NV; ++r) ng[r] = -(Mda[r] + rw.H(NE + r));
+    const auto H = [&](int r, int c) {
+      const T h = rw.H(r * (r + 1) / 2 + c);
+      if (r < 8) return Mr[r][c] + h;
+      return r == c ? (r < 11 ? mb : Ib) + h : h;
+    };
+    if (NV == 8 || !coupled) {
+      factor_solve_split<T, NV>(H, ng, step);
+    } else {
+#ifndef __CUDA_ARCH__
+      g_coupled += 1;
+#endif
+      T L[NV][NV];
+      chol_factor_by<T, NV>(H, L);
+      chol_solve<T, NV>(L, ng, step);
+    }
+
+    T Ms[NV], dMd = T(0.0), dMda = T(0.0);
+    mass_mul<T, NV>(Mr, mb, Ib, step, Ms);
+#pragma unroll
+    for (int r = 0; r < NV; ++r) {
+      dMd = dMd + step[r] * Ms[r];
+      dMda = dMda + Ms[r] * da[r];
+    }
+#pragma unroll 1
+    for (int row = tm.lane; row < nrow; row += G) {
+      T s = rw.J(row, 0) * step[0];
+#pragma unroll
+      for (int j = 1; j < NV; ++j) s = s + rw.J(row, j) * step[j];
+      rw.Jd(row) = s;
+    }
+    T t = T(1.0);
+    for (int ls = 0; ls < ls_iters; ++ls) {
+      T s1 = T(0.0), s2 = T(0.0);
+#pragma unroll 1
+      for (int row = tm.lane; row < nrow; row += G) {
+        T jd = rw.Jd(row);
+        T jt = rw.jar(row) + t * jd;
+        T act = jt < T(0.0) ? T(1.0) : T(0.0);
+        T aDJd = act * (rw.D(row) * jd);
+        s1 = s1 + aDJd * jt;
+        s2 = s2 + aDJd * jd;
+      }
+      T phi1 = dMda + t * dMd + tm.sum(s1);
+      T phi2 = dMd + tm.sum(s2);
+      t = t - phi1 / Max(phi2, T(MJ_MINVAL));
+    }
+    t = Max(t, T(0.0));
+#pragma unroll
+    for (int j = 0; j < NV; ++j) a[j] = a[j] + t * step[j];
+  }
+
+  // ---- constraint forces (by entry, as the gradient) and implicitfast
+  // integration
+#pragma unroll 1
+  for (int row = tm.lane; row < nrow; row += G) {
+    T s = rw.J(row, 0) * a[0];
+#pragma unroll
+    for (int j = 1; j < NV; ++j) s = s + rw.J(row, j) * a[j];
+    s = s - rw.aref(row);
+    rw.w(row) = rw.D(row) * Max(-s, T(0.0));
+  }
+  tm.sync();
+  for (int j = tm.lane; j < NV; j += G) {
+    T q = T(0.0);
+#pragma unroll 1
+    for (int row = 0; row < nrow; ++row) q = q + rw.w(row) * rw.J(row, j);
+    rw.H(j) = q;
+  }
+  tm.sync();
+  T qfrc[NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) qfrc[j] = qfrc_smooth[j] + rw.H(j);
+  const T h = T(p.timestep);
+  for (int i = 0; i < 2; ++i)
+    Mr[6 + i][6 + i] = Mr[6 + i][6 + i] - h * (T(-p.damping) + dfdv[i]);
+  T L8[8][8], dv[NV];
+  chol_factor<T, 8>(Mr, L8);
+  mass_solve<T, NV>(L8, mb, Ib, qfrc, dv);
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    qvel[j] = qvel[j] + h * dv[j];
+    ws[j] = a[j];
+  }
+}
+
+// Number of set bits: the slot of an included contact is the count of
+// included candidates before it.
+BRT_HD int popc(unsigned x) {
+#ifdef __CUDA_ARCH__
+  return __popc(x);
+#else
+  return __builtin_popcount(x);
+#endif
+}
+
+// The lanes of the team of G that holds warp lane `wl`.
+BRT_HD unsigned team_mask(int G, int wl) {
+  return G == 32 ? 0xffffffffu : ((1u << G) - 1u) << (wl & ~(G - 1));
+}
+
 // Position update of the robot's 9 qpos from its new qvel
 template <typename T>
 BRT_HD void integrate_robot(T qpos[9], const T* qvel, T h) {
@@ -724,5 +1093,15 @@ BRT_HD void integrate_robot(T qpos[9], const T* qvel, T h) {
 }
 
 constexpr int THREADS = 32;   // one warp per block: see each kernel's note
+
+#ifdef __CUDACC__
+// Dynamic shared memory above 48 KB needs the kernel's opt-in.
+template <typename K>
+int allow_smem(K kernel, int bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+#endif
 
 }  // namespace brt

@@ -92,8 +92,13 @@ def _bind(path):
             fn.argtypes = [ptr] * 7 + [i32, P] + [i32] * 3 + [ptr]
             fn.restype = i32
     dptr = ctypes.POINTER(ctypes.c_double)
-    lib.k2_count_ops.argtypes = [dptr] * 7 + [P] + [i32] * 3
+    lib.k2_count_ops.argtypes = [dptr] * 7 + [P] + [i32] * 3 \
+        + [ctypes.POINTER(ctypes.c_longlong)]
     lib.k2_count_ops.restype = ctypes.c_longlong
+    fn = getattr(lib, "k2_launch_config", None)
+    if fn is not None:   # absent from a build of an earlier csrc/
+        fn.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
+        fn.restype = None
     return lib
 
 
@@ -104,6 +109,12 @@ def build(process=None):
     if _lib is None:
         _lib = _bind(kernel_build.build(LABEL, SOURCE, build_info, process))
     return _lib
+
+
+def launch_config(dtype):
+    """(lanes per env, envs per block, shared bytes per block) of K2's
+    launch for `dtype` (torch.float32 or torch.float64)."""
+    return cuda_step.read_launch_config(build().k2_launch_config, dtype)
 
 
 # ------------------------------------------------------------ launch
@@ -134,16 +145,19 @@ def control_step14_cuda(qpos, qvel, ws, ctrl, params, frame_skip=250):
     return qp, qv, w
 
 
-def count_ops(qpos, qvel, ws, ctrl, params, frame_skip=250, lib=None):
+def count_ops(qpos, qvel, ws, ctrl, params, frame_skip=250, lib=None,
+              coupled=None):
     """Run K2's own source on the host, in double, for one control step of
     each env given (CPU tensors). Returns (counts, qpos', qvel', ws'): the
     arithmetic operations per env and the new state. `lib` is a library
     bound with `_bind` (the source compiled as plain C++); by default the
-    nvcc build."""
+    nvcc build. A list `coupled` receives, per env, the Newton steps that
+    factorized H as 14 x 14 because a robot-block row was active."""
     import ctypes
     lib = lib or build()
     kp = kernel_params(params)
     dptr = ctypes.POINTER(ctypes.c_double)
+    n_coupled = ctypes.c_longlong()
     counts = []
     outs = [torch.empty(qpos.shape[0], n, dtype=torch.float64)
             for n in (16, 14, 14)]
@@ -154,5 +168,7 @@ def count_ops(qpos, qvel, ws, ctrl, params, frame_skip=250, lib=None):
             *(ctypes.cast(t.data_ptr(), dptr) for t in ins),
             *(ctypes.cast(o[i].data_ptr(), dptr) for o in outs),
             ctypes.byref(kp), params.newton_iters, params.ls_iters,
-            frame_skip))
+            frame_skip, ctypes.byref(n_coupled)))
+        if coupled is not None:
+            coupled.append(n_coupled.value)
     return (counts, *outs)

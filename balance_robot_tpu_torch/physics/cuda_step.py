@@ -133,6 +133,10 @@ def _bind(path):
     lib.k1_count_ops.argtypes = [dptr] * 4 + [ctypes.c_double] + [dptr] * 3 \
         + [ctypes.POINTER(Params)] + [i32] * 4
     lib.k1_count_ops.restype = ctypes.c_longlong
+    fn = getattr(lib, "k1_launch_config", None)
+    if fn is not None:   # absent from a build of an earlier csrc/
+        fn.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
+        fn.restype = None
     return lib
 
 
@@ -143,6 +147,21 @@ def build(process=None):
     if _lib is None:
         _lib = _bind(kernel_build.build(LABEL, SOURCE, build_info, process))
     return _lib
+
+
+def read_launch_config(fn, dtype):
+    """(lanes per env, envs per block, shared bytes per block) from a
+    kernel's `k*_launch_config` entry `fn`, for `dtype`."""
+    import ctypes
+    vals = [ctypes.c_int() for _ in range(3)]
+    fn(int(dtype == torch.float64), *(ctypes.byref(v) for v in vals))
+    return tuple(v.value for v in vals)
+
+
+def launch_config(dtype):
+    """(lanes per env, envs per block, shared bytes per block) of K1's
+    launch for `dtype` (torch.float32 or torch.float64)."""
+    return read_launch_config(build().k1_launch_config, dtype)
 
 
 # ------------------------------------------------------------ launch

@@ -6,7 +6,9 @@ repository root, as a shared library that `ctypes` loads. The library's
 name carries a hash of the source, of every header of `csrc/` it includes
 (directly or through another header) and of the compiler flags, so an edit
 to a shared header rebuilds every kernel that includes it, and an unchanged
-kernel is reused.
+kernel is reused. `defines` (`-D` flags) and another source directory
+(`csrc`) build a variant under its own name, for timing one design against
+another in one run (`tools/time_kernels.py`).
 """
 
 import hashlib
@@ -24,10 +26,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
-def sources(name):
+def sources(name, csrc=None):
     """`csrc/<name>` and the `csrc/` headers it includes, transitively, in
     a fixed order."""
-    seen, todo = [], [CSRC / name]
+    seen, todo = [], [(csrc or CSRC) / name]
     while todo:
         path = todo.pop()
         if path in seen:
@@ -38,9 +40,9 @@ def sources(name):
     return [seen[0]] + sorted(seen[1:])
 
 
-def source_tag(name, flags=NVCC_FLAGS):
+def source_tag(name, flags=NVCC_FLAGS, csrc=None):
     h = hashlib.sha256(" ".join(flags).encode())
-    for path in sources(name):
+    for path in sources(name, csrc):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     return h.hexdigest()[:16]
 
@@ -54,8 +56,8 @@ def nvcc_path():
     return str(nvcc)
 
 
-def _library(label, name):
-    tag = source_tag(name)
+def _library(label, name, csrc=None, defines=()):
+    tag = source_tag(name, NVCC_FLAGS + tuple(defines), csrc)
     return (BUILD_DIR / f"lib{label}_{tag}.so",
             BUILD_DIR / f"lib{label}_{tag}.ptxas.txt")
 
@@ -64,31 +66,32 @@ def _partial(so):
     return so.with_name(f".{so.stem}.{os.getpid()}.so")
 
 
-def start_build(label, name):
+def start_build(label, name, csrc=None, defines=()):
     """Start nvcc on `csrc/<name>` unless its library is already built;
     returns the running process or None. `build` waits for it."""
-    so, _ = _library(label, name)
+    so, _ = _library(label, name, csrc, defines)
     if so.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # compile beside the target and rename when done, so that a library
     # under its final name is always complete
     return subprocess.Popen(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(_partial(so)), str(CSRC / name)],
+        [nvcc_path(), *NVCC_FLAGS, *defines, "-o", str(_partial(so)),
+         str((csrc or CSRC) / name)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
-def build(label, name, info, process=None):
+def build(label, name, info, process=None, csrc=None, defines=()):
     """Build `csrc/<name>` into lib<label>_<hash>.so unless that exists, and
     return the library's path. `info` (a dict) receives the seconds taken,
     whether the library was reused, its path, ptxas's report and the
     `Used N registers` lines of it. `process` is a build that `start_build`
-    already started."""
-    so, log = _library(label, name)
+    already started with the same arguments."""
+    so, log = _library(label, name, csrc, defines)
     t0 = time.perf_counter()
     cached = so.exists() and process is None
     if not cached:
-        proc = process or start_build(label, name)
+        proc = process or start_build(label, name, csrc, defines)
         if proc is not None:
             _, err = proc.communicate()
             if proc.returncode != 0:

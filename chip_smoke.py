@@ -25,7 +25,9 @@ Phases, in order; any failure exits non-zero before the final line:
      package's float32 return (see RETURN_MOVE_JAX), a few Cal01 steps, and
      the int8 inner policy on the card against the CPU;
   6. times: K1, K2 and K3 and their plain versions at B = 4096 on the main
-     paths' states, against each kernel's bound.
+     paths' states, against each kernel's bound; K1 at B = 256 (Env01
+     serving's batch) and K2 at B = 1024 at the exact grade (the flagship
+     serving's batch and grade).
 It ends with one JSON line per the contract: {"ok": true, "device": ...}.
 """
 
@@ -386,9 +388,19 @@ def bound(ops_per_env, n_envs, tensors):
                     f"{clock_mhz:.0f} MHz)"}
 
 
-def print_build(name, info):
+def print_build(name, module):
+    info = module.build_info
     print(f"build: {name} in {info['seconds']:.1f} s "
           f"({'reused' if info['cached'] else 'compiled'})")
+    config = getattr(module, "launch_config", None)
+    if config is None:
+        print("  launch: one thread per env, 32 per block, no shared memory")
+    else:
+        for dtype in (torch.float32, torch.float64):
+            team, envs, smem = config(dtype)
+            print(f"  launch {str(dtype)[6:]}: a team of {team} lanes per "
+                  f"env, {envs} envs per block, {smem} bytes of shared "
+                  "memory per block")
     for line in info["ptxas"].splitlines():
         if "spill" in line or "Used" in line or "stack frame" in line:
             print("  ptxas:", line.strip())
@@ -467,7 +479,7 @@ def main():
              for name, m in modules.items()}
     for name, m in modules.items():
         m.build(procs[name])
-        print_build(name, m.build_info)
+        print_build(name, m)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -807,6 +819,32 @@ def main():
         print(f"K3 B={N_ENVS} f32 fast with every env at a wall: median "
               f"{wall_ms:.3f} ms over {TIMED_LAUNCHES} launches; "
               f"{wall_ops:.0f} ops/env/control step")
+
+        # the serving batches: Env01-v2 at 256 envs, the flagship Env03-v2
+        # at 1024 envs and the exact grade; the first envs of the main
+        # paths' states
+        def serving_time(name, module, kernel, tensors, extra, grade):
+            B = tensors[0].shape[0]
+            ms = time_kernel(lambda: kernel(*tensors, *extra))
+            ops = float(np.mean(module.count_ops(
+                *(t[:16].cpu() for t in tensors), *extra)[0]))
+            b = bound(ops, B, list(tensors) + list(kernel(*tensors, *extra)))
+            print(f"{name} B={B} f32 {grade}: median {ms:.3f} ms over "
+                  f"{TIMED_LAUNCHES} launches; {ops:.0f} ops/env/control "
+                  f"step -> bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+                  f"({100 * b['bound_ms'] / ms:.2f}% of the bound reached)")
+
+        qpos, qvel, ws = states.phys
+        ctrl = qvel[:, 6:8] + act(policy, obs) * 4.0
+        serving_time("K1", cuda_step, cuda_step.control_step_cuda,
+                     [t[:SERVE_EPISODES].contiguous()
+                      for t in (qpos, qvel, ws, ctrl)],
+                     (None, env.params), "fast")
+        qpos, qvel, ws = states03.phys
+        ctrl = qvel[:, 6:8] + act(policy03, obs03) * 4.0
+        serving_time("K2", cuda_block, cuda_block.control_step14_cuda,
+                     [t[:n03].contiguous() for t in (qpos, qvel, ws, ctrl)],
+                     (bs.ENV03_PARAMS,), "exact")
 
         for name, k_ms, plain_ms, ops, b in report:
             print(f"{name} B={N_ENVS} f32 fast: median {k_ms:.3f} ms over "

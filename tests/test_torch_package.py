@@ -288,29 +288,36 @@ def test_kernel_module_imports_and_builds_lazily():
 
 @pytest.mark.cuda
 def test_k1_matches_plain_on_the_card():
-    """K1 against its plain version on the GPU (float64, ragged batch,
-    a short control step, with and without friction)."""
+    """K1 against its plain version on the GPU (float64, a short control
+    step, with and without friction) at B = 1 and at a ragged batch that
+    is no multiple of the envs per block (when a block holds several)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (and nvcc to build K1)")
     g = torch.Generator().manual_seed(0)
-    B = 37
-    qpos = torch.zeros(B, 9, dtype=torch.float64)
-    qpos[:, 3] = 1.0
-    qpos[:, 4] = torch.rand(B, generator=g, dtype=torch.float64) * 0.2
-    qpos[:, 2] = -0.021
-    qvel = torch.randn(B, 8, generator=g, dtype=torch.float64) * 0.3
-    ctrl = torch.randn(B, 2, generator=g, dtype=torch.float64) * 5
-    fric = torch.rand(B, generator=g, dtype=torch.float64) * 0.5 + 0.5
-    for params in (rc.ENV01_PARAMS, fast_solver(rc.ENV02_PARAMS)):
-        args = [t.cuda() for t in (qpos, qvel, torch.zeros_like(qvel), ctrl)]
-        fr = fric.cuda() if params.dynamic_friction else None
-        before = cuda_step.launches
-        out = cuda_step.control_step(*args, fr, params, frame_skip=20)
-        assert cuda_step.launches == before + 1
-        ref = cuda_step.control_step_plain(*args, fr, params, frame_skip=20)
-        for a, b in zip(out, ref):
-            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9)
-    print(json.dumps(cuda_step.build_info["resources"]))
+    envs = cuda_step.launch_config(torch.float64)[1]   # per block
+    for B in (1, 37):
+        assert B == 1 or envs == 1 or B % envs
+        qpos = torch.zeros(B, 9, dtype=torch.float64)
+        qpos[:, 3] = 1.0
+        qpos[:, 4] = torch.rand(B, generator=g, dtype=torch.float64) * 0.2
+        qpos[:, 2] = -0.021
+        qvel = torch.randn(B, 8, generator=g, dtype=torch.float64) * 0.3
+        ctrl = torch.randn(B, 2, generator=g, dtype=torch.float64) * 5
+        fric = torch.rand(B, generator=g, dtype=torch.float64) * 0.5 + 0.5
+        for params in (rc.ENV01_PARAMS, fast_solver(rc.ENV02_PARAMS)):
+            args = [t.cuda() for t in (qpos, qvel, torch.zeros_like(qvel),
+                                       ctrl)]
+            fr = fric.cuda() if params.dynamic_friction else None
+            before = cuda_step.launches
+            out = cuda_step.control_step(*args, fr, params, frame_skip=20)
+            assert cuda_step.launches == before + 1
+            ref = cuda_step.control_step_plain(*args, fr, params,
+                                               frame_skip=20)
+            for a, b in zip(out, ref):
+                torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9)
+    print(json.dumps(cuda_step.build_info["resources"]),
+          cuda_step.launch_config(torch.float32),
+          cuda_step.launch_config(torch.float64))
 
 
 def block_states(B, seed=0):
@@ -329,20 +336,27 @@ def test_k2_matches_plain_on_the_card():
     active), and a float32 launch at the serving batch."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (and nvcc to build K2)")
-    B = 61
-    qpos, qvel, ctrl = block_states(B)
-    for params in (bs.ENV03_PARAMS, fast_solver(bs.ENV03_PARAMS)):
-        args = [t.cuda() for t in (qpos, qvel, torch.zeros_like(qvel), ctrl)]
-        before = cuda_block.launches
-        out = cuda_block.control_step14(*args, params, frame_skip=40)
-        assert cuda_block.launches == before + 1
-        seen = {}
-        ref = cuda_block.control_step14_plain(*args, params, frame_skip=40,
-                                              contact_counts=seen)
-        for a, b in zip(out, ref):
-            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9)
-        assert all(int(v.sum()) > 0 for v in seen.values()), seen
-    print(json.dumps(cuda_block.build_info["resources"]))
+    envs = cuda_block.launch_config(torch.float64)[1]   # per block
+    for B in (1, 61):
+        assert B == 1 or envs == 1 or B % envs
+        qpos, qvel, ctrl = block_states(B)
+        for params in (bs.ENV03_PARAMS, fast_solver(bs.ENV03_PARAMS)):
+            args = [t.cuda() for t in (qpos, qvel, torch.zeros_like(qvel),
+                                       ctrl)]
+            before = cuda_block.launches
+            out = cuda_block.control_step14(*args, params, frame_skip=40)
+            assert cuda_block.launches == before + 1
+            seen = {}
+            ref = cuda_block.control_step14_plain(*args, params,
+                                                  frame_skip=40,
+                                                  contact_counts=seen)
+            for a, b in zip(out, ref):
+                torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9)
+            if B > 1:
+                assert all(int(v.sum()) > 0 for v in seen.values()), seen
+    print(json.dumps(cuda_block.build_info["resources"]),
+          cuda_block.launch_config(torch.float32),
+          cuda_block.launch_config(torch.float64))
     qpos, qvel, ctrl = block_states(4096, seed=1)
     args = [t.float().cuda() for t in (qpos, qvel, torch.zeros_like(qvel),
                                        ctrl)]
