@@ -21,44 +21,82 @@
 // M - h*D -> quaternion integration. No dynamic friction: the wall scene
 // carries none.
 //
-// Design: one thread per env and all substeps in one launch, as K1 and K2.
-// Only qpos, qvel, warm start and ctrl cross device memory, once each. The
-// ragged batch edge is masked in the kernel; the scene (robot, contact
-// parameters, up to MAX_WALLS axis-aligned walls) and the iteration counts
-// are runtime arguments, so a change of solver grade rebuilds nothing.
+// Design: the team solver of K1 and K2 (team_solve in robot_common.cuh),
+// all substeps in one launch, one warp per block. Only qpos, qvel, warm
+// start and ctrl cross device memory, once each; the ragged batch edge is
+// masked per team; the scene (robot, contact parameters, up to MAX_WALLS
+// axis-aligned walls) and the iteration counts are runtime arguments, so a
+// change of solver grade rebuilds nothing.
+// - Rows of included contacts only, in the serial order: wheel-floor,
+//   chassis-floor, then per wall chassis-wall, left wheel-wall, right
+//   wheel-wall; each contact's rows go to the slot that its included
+//   predecessors leave (a masked row adds exact zeros to every sum). The
+//   store holds the colliders' own worst case, so that no contact can be
+//   dropped whatever the walls and the pose: 8 wheel-floor + 4
+//   chassis-floor (plane-box keeps the deepest 4) + MAX_WALLS x (8
+//   chassis-wall face contacts, or 1 edge contact, + 6 wheel-wall) = 68
+//   contacts, 272 rows of J (8 columns), aref, D, J a - aref and J step.
+//   A robot clear of the walls fills the first 8-32 rows.
+// - The floor colliders run on every lane, as in K1; candidate c is
+//   emitted by lane c mod G. The 3 x n_walls wall-collider calls (call
+//   c = 3 w + i: wall w's box-box for i = 0, its box-cylinder with the
+//   left or right wheel for i = 1, 2) are dealt whole to the lanes, call c
+//   on lane c mod G; the team's shuffle scan of their counts of included
+//   contacts gives each call its slot, and the lane that ran a call writes
+//   its rows. Box-box returns before its manifold when the boxes are
+//   apart, which for a wall is nearly always.
 //
-// Where the rows live. The TPU kernel emits all 130 candidate records (520
-// rows of 8 columns) and masks the ones that are out. Here a thread keeps
-// only the contacts that are included, written one after another, as K2
-// does: a masked row adds exact zeros to every sum. The arrays are sized
-// for the worst case of the colliders' own caps, so that no contact can be
-// dropped whatever the walls and the pose: 8 wheel-floor + 4 chassis-floor
-// (plane-box keeps the deepest 4) + MAX_WALLS x (8 chassis-wall face
-// contacts, or 1 edge contact, + 6 wheel-wall) = 68 contacts, 272 rows. J,
-// aref, D, jar and J*step are 3,264 values per thread in thread-local
-// memory (L1-cached), of which a robot clear of the walls touches the first
-// 32 rows or so. Box-box returns before its manifold when the boxes are
-// apart, which for a wall is nearly always: a substep away from the walls
-// costs K1's work on fewer rows plus four 15-axis separation tests and
-// eight 3-point box-cylinder tests.
+// Two instantiations of the one source, chosen by batch size in the
+// wrapper (cuda_move.py), which reads the choice from k3_launch_config:
+// - below CROSSOVER envs (serving: EnvMove05-v1 evaluates 2 x 256 episodes
+//   in one batch of 512), a team of TEAM = 32 lanes per env, one env per
+//   warp, its rows in dynamic shared memory (TeamRows: column-major with a
+//   stride of 273, plus the 44 Hessian and gradient entries; 14,372 bytes
+//   per env in float, 28,744 in double). At B = 512 each SM holds about 4
+//   env-chains where one thread per env keeps 16 of 132 SMs busy, and the
+//   272-row loops shrink 32-fold at a wall;
+// - from CROSSOVER envs on (the 4096-env main path), a team of one lane,
+//   one thread per env, its rows in the thread's own local array
+//   (LaneRows: J row-major, 13,056 bytes in float), which the hardware
+//   interleaves by thread so that a warp's accesses to one row coalesce;
+//   every shuffle and warp sync compiles out, and team_solve takes each
+//   row's Hessian, gradient and force in one pass from J in registers, as
+//   the one-thread design before did. A team there would run the serial
+//   parts (fk, CRB, RNE, colliders, the small factorizations) once per
+//   lane on a card that one thread per env already fills: one thread per
+//   env takes ~17.4 ms at any batch up to one warp per SM (4,224 envs).
+// The crossover is where the 32-lane team stops fitting one wave: 255
+// registers a thread leave 8 one-warp blocks per SM, 1,056 envs on 132
+// SMs; a second wave doubles the team's time. Timed in turns on an H100
+// 80GB HBM3 at 700 W (tools/time_kernels.py; PERF.md), ms at
+// B = 512 / 1024 / 2048 / 4096, fast grade, on the EnvMove05-v1 main
+// path's states: 32 lanes 10.1 / 13.3 / 25.7 / 50.1; one lane 17.4 /
+// 17.6 / 17.6 / 17.5; 16 lanes 15.7 / 17.9 / 35.9 / 58.7; 8 lanes 27.6 /
+// 28.0 / 52.4 / 78.1; 32 lanes capped at 128 registers (16 blocks per SM)
+// 16.8 / 22.8 / 43.5 / 71.0 (more spills than warps won); the
+// one-thread-per-env design before 17.3 at every batch.
 //
-// What bounds it on an H100: operations, as K1 and K2: one serial chain of
-// scalar float math per thread with no matrix product for the tensor cores;
-// about 208 bytes per env per control step cross device memory. Blocks of
-// 32 threads: B = 4096 is 128 blocks, one warp per SM, so the kernel is
-// latency-bound on each thread's chain, and a warp waits for its env with
-// the most contacts.
+// What bounds it on an H100: the latency of each env's serial chain of
+// scalar float math (no matrix product for the tensor cores); the
+// operations are under 2% of the card's fp32 peak in that time (under
+// 0.5% at B = 512) and about 208 bytes per env per control step cross
+// device memory.
 //
-// ptxas (-Xptxas -v, nvcc 12.8, sm_90a): float kernel 255 registers, 14,736
-// bytes stack frame, 360 bytes spill stores, 1,276 bytes spill loads; double
-// kernel 255 registers, 30,400 bytes stack frame, 2,140 bytes spill stores,
-// 6,716 bytes spill loads. The stack frame is the per-thread row arrays.
-// chip_smoke.py prints the counts of each build.
+// ptxas (-Xptxas -v, nvcc 12.8, sm_90a), 255 registers for every kernel:
+// float, 32 lanes: 2,160 bytes stack frame, 296 / 1,140 bytes spill
+// stores / loads; float, one lane: 15,120 bytes stack frame (13,056 of it
+// the rows), 240 / 828 spilled; double, 32 lanes: 5,328, 1,996 / 5,800;
+// double, one lane: 31,184, 1,928 / 6,280 (the one-thread design before:
+// float 14,736 bytes stack, 360 / 1,276 spilled; double 30,400, 2,140 /
+// 6,716).
 //
-// The same templated code also runs on the host with `Counted`:
-// k3_count_ops gives the operation count behind the kernel's bound, and
-// lets the kernel's arithmetic be compared with the plain version without
-// a GPU.
+// The same templated code also runs on the host with `Counted` and a team
+// of one lane: k3_count_ops gives the operation count behind the kernel's
+// bound, and lets the kernel's arithmetic be compared with the plain
+// version without a GPU. chip_smoke.py prints ptxas's registers, stack and
+// spills of each build and each instantiation's launch shape.
+
+#include <type_traits>
 
 #include "box_collide.cuh"
 #include "robot_common.cuh"
@@ -69,8 +107,30 @@ using namespace brt;
 
 constexpr int NV = NV_ROBOT;
 constexpr int MAX_WALLS = 4;
+constexpr int NFLOOR = 16;   // floor candidates: 2 x 4 wheel, 8 chassis
 constexpr int MAXCON = 12 + 14 * MAX_WALLS;
 constexpr int MAXROW = 4 * MAXCON;
+// The small-batch team, the blocks per SM that its registers are capped
+// for (__launch_bounds__), and the batch from which one lane per env runs
+// instead (see above); only tools/time_kernels.py overrides them.
+#ifndef BRT_K3_TEAM
+#define BRT_K3_TEAM 32
+#endif
+#ifndef BRT_K3_MINB
+#define BRT_K3_MINB 1
+#endif
+#ifndef BRT_K3_CROSSOVER
+#define BRT_K3_CROSSOVER 1057
+#endif
+constexpr int TEAM = BRT_K3_TEAM;
+constexpr int CROSSOVER = BRT_K3_CROSSOVER;
+static_assert(TEAM >= 1 && TEAM <= 32 && (TEAM & (TEAM - 1)) == 0,
+              "the team is a power of two inside one warp");
+// The row store of a team of G lanes: TeamRows for several lanes (shared
+// memory), LaneRows for one (its own array, J row-major).
+template <typename T, int G>
+using Rows = std::conditional_t<G == 1, LaneRows<T, NV, MAXROW>,
+                                TeamRows<T, NV, MAXROW>>;
 
 struct ParamsWalls {
   Params robot;
@@ -79,23 +139,28 @@ struct ParamsWalls {
   double walls[MAX_WALLS][6];          // centre xyz, half-extents xyz
 };
 
+// The lanes per env of a launch of B envs.
+inline int team_for(int B) { return B < CROSSOVER ? TEAM : 1; }
+
 // The 4 rows of one wall contact of robot body `body` at `cpos` with
 // distance `dist` in frame (n, t1, t2): -J on that body's chain.
-template <typename T>
-BRT_HD void wall_rows(int r, const T cpos[3], T dist, const T n[3],
-                      const T t1[3], const T t2[3], int body,
+template <typename T, class R>
+BRT_HD void wall_rows(const R& rows, int r, const T cpos[3], T dist,
+                      const T n[3], const T t1[3], const T t2[3], int body,
                       const ContactP& prm, const RobotKin<T>& k,
-                      const T* qvel, T (*J)[NV], T* aref, T* D) {
+                      const T* qvel) {
   T Jn[NV], Jt1[NV], Jt2[NV];
   robot_neg_jac(cpos, body, n, t1, t2, k, Jn, Jt1, Jt2);
-  emit_rows<T, NV>(r, Jn, Jt1, Jt2, dist, T(prm.mu1), T(prm.mu2),
-                   T(prm.dA1), T(prm.dA2), prm, qvel, J, aref, D);
+  emit_rows<T, NV>(rows, r, Jn, Jt1, Jt2, dist, T(prm.mu1), T(prm.mu2),
+                   T(prm.dA1), T(prm.dA2), prm, qvel);
 }
 
 // ------------------------------------------------------- one substep
-template <typename T>
-BRT_HD void substep(T qpos[9], T qvel[8], T ws[8], const T ctrl[2],
-                    const ParamsWalls& P, int newton_iters, int ls_iters) {
+template <typename T, class Tm, class R>
+BRT_HD void substep(const Tm& tm, const R& rw, T qpos[9], T qvel[8],
+                    T ws[8], const T ctrl[2], const ParamsWalls& P,
+                    int newton_iters, int ls_iters) {
+  constexpr int G = Tm::G;
   const Params& p = P.robot;
   RobotKin<T> k;
   T M[NV][NV], qfrc_smooth[NV], dfdv[2];
@@ -107,97 +172,129 @@ BRT_HD void substep(T qpos[9], T qvel[8], T ws[8], const T ctrl[2],
     chol_solve<T, NV>(L, qfrc_smooth, a_smooth);
   }
 
-  // ---- contacts -> rows, included contacts only, in the order wheels,
-  // chassis, then per wall chassis, left wheel, right wheel
-  T J[MAXROW][NV], aref[MAXROW], D[MAXROW];
-  int nrow = 0;
+  // ---- floor contacts, on every lane: left wheel 0-3, right wheel 4-7,
+  // chassis 8-15; candidate c goes to lane c mod G, at the slot its
+  // included predecessors leave
   const T axis[3] = {k.R[0][0], k.R[1][0], k.R[2][0]};
   T cc[3];
   for (int a = 0; a < 3; ++a) cc[a] = k.pos[a] + k.R[a][2] * T(CH_OFF);
+  unsigned fmask = 0;
   {
-    T cpos[8][3], cdist[8];
-    bool cinc[8];
-    plane_cylinder(k.xl, axis, cpos, cdist, cinc);
-    plane_cylinder(k.xr, axis, cpos + 4, cdist + 4, cinc + 4);
-    for (int c = 0; c < 8; ++c)
-      if (cinc[c]) {
-        robot_floor_rows<T, NV>(nrow, cpos[c], cdist[c], c < 4 ? 1 : 2,
-                                T(p.wheel.mu1), T(p.wheel.mu2),
-                                T(p.wheel.dA1), T(p.wheel.dA2), p.wheel, k,
-                                qvel, J, aref, D);
-        nrow += 4;
-      }
-    plane_box(cc, k.R, CH_HX, CH_HY, CH_HZ, T(0.0), cpos, cdist, cinc);
-    for (int c = 0; c < 8; ++c)
-      if (cinc[c]) {
-        robot_floor_rows<T, NV>(nrow, cpos[c], cdist[c], 0, T(p.chassis.mu1),
-                                T(p.chassis.mu2), T(p.chassis.dA1),
-                                T(p.chassis.dA2), p.chassis, k, qvel, J,
-                                aref, D);
-        nrow += 4;
-      }
+    T fpos[NFLOOR][3], fdist[NFLOOR];
+    bool finc[NFLOOR];
+    plane_cylinder(k.xl, axis, fpos, fdist, finc);
+    plane_cylinder(k.xr, axis, fpos + 4, fdist + 4, finc + 4);
+    plane_box(cc, k.R, CH_HX, CH_HY, CH_HZ, T(0.0), fpos + 8, fdist + 8,
+              finc + 8);
+    for (int c = 0; c < NFLOOR; ++c) fmask |= finc[c] ? 1u << c : 0u;
+    tm.sync();   // every lane is done with the last substep's rows
+#pragma unroll 1
+    for (int c = tm.lane; c < NFLOOR; c += G) {
+      if (!((fmask >> c) & 1u)) continue;
+      const int body = c < 4 ? 1 : (c < 8 ? 2 : 0);
+      const ContactP& prm = body ? p.wheel : p.chassis;
+      robot_floor_rows<T, NV>(rw, 4 * popc(fmask & ((1u << c) - 1u)),
+                              fpos[c], fdist[c], body, T(prm.mu1),
+                              T(prm.mu2), T(prm.dA1), T(prm.dA2), prm, k,
+                              qvel);
+    }
   }
+  int nrow = 4 * popc(fmask);
+
+  // ---- wall contacts: call c = 3 w + i (wall w; i = 0 chassis box-box,
+  // 1 left and 2 right wheel box-cylinder) runs on lane c mod G; the
+  // team's scan of the calls' contact counts, in call order, gives each
+  // call its slot after the floor rows, and the lane that ran it writes
+  // its rows there
   const T chalf[3] = {T(CH_HX), T(CH_HY), T(CH_HZ)};
   const T eye[3][3] = {{T(1.0), T(0.0), T(0.0)},
                        {T(0.0), T(1.0), T(0.0)},
                        {T(0.0), T(0.0), T(1.0)}};
   const T no_margin = T(0.0);
+  const int ncalls = 3 * P.n_walls;
 #pragma unroll 1
-  for (int w = 0; w < P.n_walls; ++w) {
-    const T cw[3] = {T(P.walls[w][0]), T(P.walls[w][1]), T(P.walls[w][2])};
-    const T hw[3] = {T(P.walls[w][3]), T(P.walls[w][4]), T(P.walls[w][5])};
-    {
-      T bpos[8][3], bdist[8], n[3], t1[3], t2[3];
-      int nb = box_box(cc, k.R, chalf, cw, eye, hw, no_margin, bpos, bdist,
-                       n, t1, t2);
-      for (int c = 0; c < nb; ++c) {
-        wall_rows(nrow, bpos[c], bdist[c], n, t1, t2, 0, P.wall_chassis, k,
-                  qvel, J, aref, D);
-        nrow += 4;
+  for (int c0 = 0; c0 < ncalls; c0 += G) {
+    const int c = c0 + tm.lane;
+    const int w = c / 3, body = c % 3;
+    T pos[8][3], dist[8], n[3], t1[3], t2[3], wn[3][3];
+    bool winc[3];
+    int cnt = 0;
+    if (c < ncalls) {
+      const T cw[3] = {T(P.walls[w][0]), T(P.walls[w][1]), T(P.walls[w][2])};
+      const T hw[3] = {T(P.walls[w][3]), T(P.walls[w][4]), T(P.walls[w][5])};
+      if (body == 0) {
+        cnt = box_box(cc, k.R, chalf, cw, eye, hw, no_margin, pos, dist, n,
+                      t1, t2);
+      } else {
+        box_cylinder(cw, eye, hw, body == 1 ? k.xl : k.xr, axis, T(WHEEL_R),
+                     T(WHEEL_H), no_margin, pos, dist, winc, wn);
+        cnt = int(winc[0]) + int(winc[1]) + int(winc[2]);
       }
     }
-#pragma unroll 1
-    for (int wheel = 1; wheel <= 2; ++wheel) {
-      T wpos[3][3], wdist[3], wn[3][3];
-      bool winc[3];
-      box_cylinder(cw, eye, hw, wheel == 1 ? k.xl : k.xr, axis, T(WHEEL_R),
-                   T(WHEEL_H), no_margin, wpos, wdist, winc, wn);
-      for (int c = 0; c < 3; ++c)
-        if (winc[c]) {
-          T t1[3], t2[3];
-          make_frame(wn[c], t1, t2);
-          wall_rows(nrow, wpos[c], wdist[c], wn[c], t1, t2, wheel,
-                    P.wall_wheel, k, qvel, J, aref, D);
-          nrow += 4;
-        }
+    int total;
+    int r = nrow + 4 * tm.excl_scan(cnt, total);
+    if (c < ncalls) {
+      if (body == 0) {
+        for (int i = 0; i < cnt; ++i, r += 4)
+          wall_rows(rw, r, pos[i], dist[i], n, t1, t2, 0, P.wall_chassis, k,
+                    qvel);
+      } else {
+        for (int i = 0; i < 3; ++i)
+          if (winc[i]) {
+            make_frame(wn[i], t1, t2);
+            wall_rows(rw, r, pos[i], dist[i], wn[i], t1, t2, body,
+                      P.wall_wheel, k, qvel);
+            r += 4;
+          }
+      }
     }
+    nrow += 4 * total;
   }
+  tm.sync();
 
-  T jar[MAXROW], Jd[MAXROW];
-  solve_and_integrate<T, NV>(nrow, J, aref, D, jar, Jd, M, a_smooth,
-                             qfrc_smooth, dfdv, p, newton_iters, ls_iters,
-                             qvel, ws);
+  team_solve<T, NV, MAXROW>(tm, rw, nrow, nrow, M, T(0.0), T(0.0), a_smooth,
+                            qfrc_smooth, dfdv, p, newton_iters, ls_iters,
+                            qvel, ws);
   integrate_robot(qpos, qvel, T(p.timestep));
 }
 
-template <typename T>
-BRT_HD void control_step_one(T q[9], T v[8], T w[8], const T c[2],
+template <typename T, class Tm, class R>
+BRT_HD void control_step_one(const Tm& tm, const R& rw, T q[9],
+                             T v[8], T w[8], const T c[2],
                              const ParamsWalls& p, int newton_iters,
                              int ls_iters, int frame_skip) {
   for (int s = 0; s < frame_skip; ++s)
-    substep(q, v, w, c, p, newton_iters, ls_iters);
+    substep(tm, rw, q, v, w, c, p, newton_iters, ls_iters);
+}
+
+// Dynamic shared memory per block of the instantiation with G lanes per
+// env: none for one lane, whose rows are in its own local array.
+template <typename T>
+constexpr int smem_bytes(int G) {
+  return G == 1 ? 0
+                : THREADS / G * TeamRows<T, NV, MAXROW>::SIZE * (int)sizeof(T);
 }
 
 #ifdef __CUDACC__
-template <typename T>
-__global__ void control_step_walls_kernel(
-    const T* __restrict__ qpos, const T* __restrict__ qvel,
-    const T* __restrict__ ws, const T* __restrict__ ctrl,
-    T* __restrict__ qpos_out, T* __restrict__ qvel_out,
-    T* __restrict__ ws_out, int B, ParamsWalls p, int newton_iters,
-    int ls_iters, int frame_skip) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+// One warp per block, THREADS / G teams of G lanes, one env per team; a
+// team of several lanes keeps its rows in its slice of the block's dynamic
+// shared memory, a team of one in its own local array.
+template <typename T, int G>
+__global__ void __launch_bounds__(THREADS, G == 1 ? 1 : BRT_K3_MINB)
+    control_step_walls_kernel(
+        const T* __restrict__ qpos, const T* __restrict__ qvel,
+        const T* __restrict__ ws, const T* __restrict__ ctrl,
+        T* __restrict__ qpos_out, T* __restrict__ qvel_out,
+        T* __restrict__ ws_out, int B, ParamsWalls p, int newton_iters,
+        int ls_iters, int frame_skip) {
+  using Rw = Rows<T, G>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  alignas(16) T own[G == 1 ? Rw::SIZE : 1];
+  const int team = threadIdx.x / G;
+  const int i = blockIdx.x * (THREADS / G) + team;
   if (i >= B) return;
+  const Team<G> tm{(int)threadIdx.x % G, team_mask(G, threadIdx.x % 32)};
+  const Rw rw{G == 1 ? own : reinterpret_cast<T*>(smem) + team * Rw::SIZE};
   T q[9], v[8], w[8], c[2];
   for (int k = 0; k < 9; ++k) q[k] = qpos[9 * i + k];
   for (int k = 0; k < 8; ++k) {
@@ -206,7 +303,9 @@ __global__ void control_step_walls_kernel(
   }
   c[0] = ctrl[2 * i];
   c[1] = ctrl[2 * i + 1];
-  control_step_one(q, v, w, c, p, newton_iters, ls_iters, frame_skip);
+  control_step_one(tm, rw, q, v, w, c, p, newton_iters, ls_iters,
+                   frame_skip);
+  if (tm.lane != 0) return;
   for (int k = 0; k < 9; ++k) qpos_out[9 * i + k] = q[k];
   for (int k = 0; k < 8; ++k) {
     qvel_out[8 * i + k] = v[k];
@@ -214,15 +313,38 @@ __global__ void control_step_walls_kernel(
   }
 }
 
+template <typename T, int G>
+int launch_team(const T* qpos, const T* qvel, const T* ws, const T* ctrl,
+                T* qpos_out, T* qvel_out, T* ws_out, int B,
+                const ParamsWalls* p, int newton_iters, int ls_iters,
+                int frame_skip, void* stream) {
+  const int smem = smem_bytes<T>(G);
+  int err = allow_smem(control_step_walls_kernel<T, G>, smem);
+  if (err) return err;
+  const int envs = THREADS / G;
+  const int blocks = (B + envs - 1) / envs;
+  control_step_walls_kernel<T, G>
+      <<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+          qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out, B, *p,
+          newton_iters, ls_iters, frame_skip);
+  return (int)cudaGetLastError();
+}
+
+// `team` picks the instantiation: TEAM or 1 lane per env.
 template <typename T>
 int launch(const T* qpos, const T* qvel, const T* ws, const T* ctrl,
            T* qpos_out, T* qvel_out, T* ws_out, int B, const ParamsWalls* p,
-           int newton_iters, int ls_iters, int frame_skip, void* stream) {
-  const int blocks = (B + THREADS - 1) / THREADS;
-  control_step_walls_kernel<T><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out, B, *p, newton_iters,
-      ls_iters, frame_skip);
-  return (int)cudaGetLastError();
+           int newton_iters, int ls_iters, int frame_skip, int team,
+           void* stream) {
+  if (team == TEAM)
+    return launch_team<T, TEAM>(qpos, qvel, ws, ctrl, qpos_out, qvel_out,
+                                ws_out, B, p, newton_iters, ls_iters,
+                                frame_skip, stream);
+  if (team == 1)
+    return launch_team<T, 1>(qpos, qvel, ws, ctrl, qpos_out, qvel_out,
+                             ws_out, B, p, newton_iters, ls_iters,
+                             frame_skip, stream);
+  return (int)cudaErrorInvalidValue;
 }
 #endif
 
@@ -232,37 +354,54 @@ extern "C" {
 
 #ifdef __CUDACC__
 // Launch K3 on `stream` for B envs (row-major (B,9)/(B,8)/(B,8)/(B,2)
-// inputs). Returns cudaGetLastError() after the launch.
+// inputs) with `team` lanes per env, as k3_launch_config gives it for B.
+// Returns the CUDA error of the launch, 0 if none.
 int k3_control_step_f32(const float* qpos, const float* qvel, const float* ws,
                         const float* ctrl, float* qpos_out, float* qvel_out,
                         float* ws_out, int B, const k3::ParamsWalls* p,
                         int newton_iters, int ls_iters, int frame_skip,
-                        void* stream) {
+                        int team, void* stream) {
   return k3::launch(qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out, B, p,
-                    newton_iters, ls_iters, frame_skip, stream);
+                    newton_iters, ls_iters, frame_skip, team, stream);
 }
 
 int k3_control_step_f64(const double* qpos, const double* qvel,
                         const double* ws, const double* ctrl,
                         double* qpos_out, double* qvel_out, double* ws_out,
                         int B, const k3::ParamsWalls* p, int newton_iters,
-                        int ls_iters, int frame_skip, void* stream) {
+                        int ls_iters, int frame_skip, int team,
+                        void* stream) {
   return k3::launch(qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out, B, p,
-                    newton_iters, ls_iters, frame_skip, stream);
+                    newton_iters, ls_iters, frame_skip, team, stream);
 }
 #endif
 
 // The most walls a ParamsWalls holds.
 int k3_max_walls() { return k3::MAX_WALLS; }
 
-// One env's control step on the host in double precision, with every
-// arithmetic operation counted. Writes the new state and returns the count.
+// The batch from which a launch takes one lane per env.
+int k3_crossover() { return k3::CROSSOVER; }
+
+// The launch shape for B envs: lanes per env, envs per block and dynamic
+// shared memory per block for float (f64 = 0) or double (f64 = 1).
+void k3_launch_config(int f64, int B, int* team, int* envs, int* smem) {
+  *team = k3::team_for(B);
+  *envs = brt::THREADS / *team;
+  *smem = f64 ? k3::smem_bytes<double>(*team) : k3::smem_bytes<float>(*team);
+}
+
+// One env's control step on the host in double precision, as a team of one
+// lane, with every arithmetic operation counted. Writes the new state and
+// returns the count.
 long long k3_count_ops(const double* qpos, const double* qvel,
                        const double* ws, const double* ctrl,
                        double* qpos_out, double* qvel_out, double* ws_out,
                        const k3::ParamsWalls* p, int newton_iters,
                        int ls_iters, int frame_skip) {
   using T = brt::Counted;
+  static T buf[k3::Rows<T, 1>::SIZE];
+  const brt::Team<1> tm{0, 1u};
+  const k3::Rows<T, 1> rw{buf};
   T q[9], v[8], w[8], c[2];
   for (int k = 0; k < 9; ++k) q[k] = T(qpos[k]);
   for (int k = 0; k < 8; ++k) {
@@ -272,7 +411,8 @@ long long k3_count_ops(const double* qpos, const double* qvel,
   c[0] = T(ctrl[0]);
   c[1] = T(ctrl[1]);
   brt::g_ops = 0;
-  k3::control_step_one(q, v, w, c, *p, newton_iters, ls_iters, frame_skip);
+  k3::control_step_one(tm, rw, q, v, w, c, *p, newton_iters, ls_iters,
+                       frame_skip);
   for (int k = 0; k < 9; ++k) qpos_out[k] = q[k].v;
   for (int k = 0; k < 8; ++k) {
     qvel_out[k] = v[k].v;

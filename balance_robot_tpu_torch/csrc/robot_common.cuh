@@ -13,17 +13,14 @@
 // (unrolled, so that with compile-time indices it lives in registers), the
 // robot's smooth dynamics (fk, com_vel, CRB, RNE, actuation), the floor
 // colliders (plane-cylinder, plane-box), the solver impedance, the pyramid
-// row emitter (to any row store), and two solvers of the same algorithm
-// (Newton with an exact line search, then the implicitfast velocity
-// update):
-// - solve_and_integrate: one thread per env, rows in per-thread arrays
-//   (K3, unchanged since its port);
-// - team_solve: a team of G lanes of one warp per env, rows in shared
-//   memory (TeamRows), row loops split over the lanes with shuffle sums,
-//   the Newton Hessian and gradient split by entry, and M's and H's block
-//   structure used for K2's 14 dofs (K1, K2). What bounds it is the
-//   serial chain that stays on every lane: each kernel's note gives its
-//   figures.
+// row emitter, and the solver (Newton with an exact line search, then the
+// implicitfast velocity update): team_solve, for a team of G lanes of one
+// warp per env, rows in TeamRows (shared memory) or, for one lane per env,
+// LaneRows (the thread's local array), row loops split over the lanes with
+// shuffle sums, the Newton Hessian and gradient split by entry, and M's and
+// H's block structure used for K2's 14 dofs (K1, K2, K3). What bounds it is the
+// serial chain that stays on every lane: each kernel's note gives its
+// figures.
 
 #pragma once
 
@@ -508,22 +505,10 @@ BRT_HD void robot_smooth(const T qpos[9], const T* qvel, const T ctrl[2],
 }
 
 // ------------------------------------------------------- pyramid rows
-// Where the rows go. A row store R has J(row, j), aref(row) and D(row).
-// RowArrays: per-thread arrays, row-major (K3). TeamRows (below): one env's
-// rows in shared memory, column-major (K1, K2).
-template <typename T, int NV>
-struct RowArrays {
-  T (*J_)[NV];
-  T* aref_;
-  T* D_;
-  BRT_HD T& J(int r, int j) const { return J_[r][j]; }
-  BRT_HD T& aref(int r) const { return aref_[r]; }
-  BRT_HD T& D(int r) const { return D_[r]; }
-};
-
 // The 4 rows (mu1,+), (mu1,-), (mu2,+), (mu2,-) of one contact, from its
 // point Jacobian along the normal (Jn) and the two tangents (Jt1, Jt2),
-// written at rows r .. r+3.
+// written at rows r .. r+3 of the row store `rows` (TeamRows, below: it
+// has J(row, j), aref(row) and D(row)).
 template <typename T, int NV, class R>
 BRT_HD void emit_rows(const R& rows, int r, const T Jn[NV], const T Jt1[NV],
                       const T Jt2[NV], T dist, T mu1, T mu2, T dA1, T dA2,
@@ -549,15 +534,6 @@ BRT_HD void emit_rows(const R& rows, int r, const T Jn[NV], const T Jt1[NV],
       rows.D(row) = Dv;
     }
   }
-}
-
-template <typename T, int NV>
-BRT_HD void emit_rows(int r, const T Jn[NV], const T Jt1[NV],
-                      const T Jt2[NV], T dist, T mu1, T mu2, T dA1, T dA2,
-                      const ContactP& prm, const T* qvel, T (*J)[NV],
-                      T* aref, T* D) {
-  emit_rows<T, NV>(RowArrays<T, NV>{J, aref, D}, r, Jn, Jt1, Jt2, dist, mu1,
-                   mu2, dA1, dA2, prm, qvel);
 }
 
 // Rows of one floor contact of robot body `body` (0 chassis, 1 left wheel,
@@ -591,15 +567,6 @@ BRT_HD void robot_floor_rows(const R& rows, int r, const T cpos[3], T dist,
                    qvel);
 }
 
-template <typename T, int NV>
-BRT_HD void robot_floor_rows(int r, const T cpos[3], T dist, int body, T mu1,
-                             T mu2, T dA1, T dA2, const ContactP& prm,
-                             const RobotKin<T>& k, const T* qvel, T (*J)[NV],
-                             T* aref, T* D) {
-  robot_floor_rows<T, NV>(RowArrays<T, NV>{J, aref, D}, r, cpos, dist, body,
-                          mu1, mu2, dA1, dA2, prm, k, qvel);
-}
-
 // -J of the point `cpos` of robot body `body` (0 chassis, 1 left wheel, 2
 // right wheel), taken about the robot's com and projected on n, t1, t2:
 // what a contact with a body outside the robot's tree (the block, a wall)
@@ -626,155 +593,14 @@ BRT_HD void robot_neg_jac(const T cpos[3], int body, const T n[3],
   }
 }
 
-// ------------------------------------------------------- solver
-// The serial solver of one thread per env, on rows in per-thread arrays
-// (K3). From the rows to the new velocity: warm start chosen by cost,
-// Newton with an exact line search (fixed trip counts), constraint forces,
-// and the implicitfast update qvel += h (M - h D)^-1 qfrc. M's wheel
-// diagonal is overwritten. Every one of the nrow rows is a live contact
-// row; rows that are inactive at the current iterate are skipped in the
-// Hessian (they add exact zeros). team_solve below is the same algorithm
-// for a team of lanes on rows in shared memory (K1, K2).
-template <typename T, int NV>
-BRT_HD void solve_and_integrate(int nrow, const T (*J)[NV], const T* aref,
-                                const T* D, T* jar, T* Jd,
-                                T M[NV][NV], const T a_smooth[NV],
-                                const T qfrc_smooth[NV], const T dfdv[2],
-                                const Params& p, int newton_iters,
-                                int ls_iters, T* qvel, T* ws) {
-  // ---- warm start: the better of ws and a_smooth by cost
-  T a[NV];
-  {
-    T cst[2];
-    for (int pick = 0; pick < 2; ++pick) {
-      const T* aa = pick ? a_smooth : ws;
-      T da[NV];
-      for (int j = 0; j < NV; ++j) da[j] = aa[j] - a_smooth[j];
-      T c = T(0.0);
-      for (int r = 0; r < NV; ++r) {
-        T s = T(0.0);
-        for (int j = 0; j < NV; ++j) s = s + M[r][j] * da[j];
-        c = c + T(0.5) * da[r] * s;
-      }
-      T q = T(0.0);
-#pragma unroll 1
-      for (int r = 0; r < nrow; ++r) {
-        T s = J[r][0] * aa[0];
-        for (int j = 1; j < NV; ++j) s = s + J[r][j] * aa[j];
-        s = s - aref[r];
-        T act = s < T(0.0) ? T(1.0) : T(0.0);
-        q = q + D[r] * act * s * s;
-      }
-      cst[pick] = c + T(0.5) * q;
-    }
-    bool better = cst[0] < cst[1];
-    for (int j = 0; j < NV; ++j) a[j] = better ? ws[j] : a_smooth[j];
-  }
-
-  // ---- Newton with exact line search, fixed trip counts
-  for (int it = 0; it < newton_iters; ++it) {
-    T da[NV], g[NV], H[NV][NV];
-    for (int j = 0; j < NV; ++j) da[j] = a[j] - a_smooth[j];
-    for (int r = 0; r < NV; ++r) {
-      T s = T(0.0);
-      for (int j = 0; j < NV; ++j) s = s + M[r][j] * da[j];
-      g[r] = s;
-      for (int c2 = 0; c2 <= r; ++c2) H[r][c2] = T(0.0);
-    }
-#pragma unroll 1
-    for (int row = 0; row < nrow; ++row) {
-      T s = J[row][0] * a[0];
-      for (int j = 1; j < NV; ++j) s = s + J[row][j] * a[j];
-      s = s - aref[row];
-      jar[row] = s;
-      T wgt = D[row] * (s < T(0.0) ? T(1.0) : T(0.0));
-      if (wgt != T(0.0)) {
-        T wj = wgt * s;
-        for (int r = 0; r < NV; ++r) {
-          g[r] = g[r] + wj * J[row][r];
-          T wr = wgt * J[row][r];
-          for (int c2 = 0; c2 <= r; ++c2)
-            H[r][c2] = H[r][c2] + wr * J[row][c2];
-        }
-      }
-    }
-    for (int r = 0; r < NV; ++r)
-      for (int c2 = 0; c2 <= r; ++c2) {
-        H[r][c2] = M[r][c2] + H[r][c2];
-        H[c2][r] = H[r][c2];
-      }
-    T Lh[NV][NV], ng[NV], step[NV];
-    chol_factor<T, NV>(H, Lh);
-    for (int j = 0; j < NV; ++j) ng[j] = -g[j];
-    chol_solve<T, NV>(Lh, ng, step);
-
-    T dMd = T(0.0), dMda = T(0.0);
-    for (int r = 0; r < NV; ++r) {
-      T s = T(0.0);
-      for (int j = 0; j < NV; ++j) s = s + M[r][j] * step[j];
-      dMd = dMd + step[r] * s;
-      dMda = dMda + s * da[r];
-    }
-#pragma unroll 1
-    for (int row = 0; row < nrow; ++row) {
-      T s = J[row][0] * step[0];
-      for (int j = 1; j < NV; ++j) s = s + J[row][j] * step[j];
-      Jd[row] = s;
-    }
-    T t = T(1.0);
-    for (int ls = 0; ls < ls_iters; ++ls) {
-      T s1 = T(0.0), s2 = T(0.0);
-#pragma unroll 1
-      for (int row = 0; row < nrow; ++row) {
-        T jt = jar[row] + t * Jd[row];
-        T act = jt < T(0.0) ? T(1.0) : T(0.0);
-        T aDJd = act * (D[row] * Jd[row]);
-        s1 = s1 + aDJd * jt;
-        s2 = s2 + aDJd * Jd[row];
-      }
-      T phi1 = dMda + t * dMd + s1;
-      T phi2 = dMd + s2;
-      t = t - phi1 / Max(phi2, T(MJ_MINVAL));
-    }
-    t = Max(t, T(0.0));
-    for (int j = 0; j < NV; ++j) a[j] = a[j] + t * step[j];
-  }
-
-  // ---- constraint forces and implicitfast integration
-  T qfrc[NV];
-  for (int j = 0; j < NV; ++j) qfrc[j] = qfrc_smooth[j];
-  {
-    T qcon[NV];
-    for (int j = 0; j < NV; ++j) qcon[j] = T(0.0);
-#pragma unroll 1
-    for (int row = 0; row < nrow; ++row) {
-      T s = J[row][0] * a[0];
-      for (int j = 1; j < NV; ++j) s = s + J[row][j] * a[j];
-      s = s - aref[row];
-      T f = T(1.0) * D[row] * Max(-s, T(0.0));
-      for (int j = 0; j < NV; ++j) qcon[j] = qcon[j] + f * J[row][j];
-    }
-    for (int j = 0; j < NV; ++j) qfrc[j] = qfrc[j] + qcon[j];
-  }
-  const T h = T(p.timestep);
-  for (int i = 0; i < 2; ++i)
-    M[6 + i][6 + i] = M[6 + i][6 + i] - h * (T(-p.damping) + dfdv[i]);
-  T L[NV][NV], dv[NV];
-  chol_factor<T, NV>(M, L);
-  chol_solve<T, NV>(L, qfrc, dv);
-  for (int j = 0; j < NV; ++j) {
-    qvel[j] = qvel[j] + h * dv[j];
-    ws[j] = a[j];
-  }
-}
-
 // ------------------------------------------------------- team solver
 // A team of G lanes (G a power of two <= 32, inside one warp) works on one
 // env. Sums over rows are taken by a butterfly of __shfl_xor_sync on the
 // team's mask; a^b == b^a, so every lane ends with the same bits, and the
 // parts that stay serial (fk, CRB, RNE, the small factorizations) run
-// redundantly on every lane and agree bit for bit. On the host (the
-// `*_count_ops` builds) G is 1 and every team call is the identity.
+// redundantly on every lane and agree bit for bit. With G = 1 (the host's
+// `*_count_ops` builds, and K3's kernel for large batches) every team call
+// is the identity.
 template <int G_>
 struct Team {
   static constexpr int G = G_;
@@ -800,16 +626,34 @@ struct Team {
   }
   BRT_HD void sync() const {
 #ifdef __CUDA_ARCH__
-    __syncwarp(mask);
+    if constexpr (G > 1) __syncwarp(mask);
 #endif
+  }
+  // The sum of v over the team's lanes before this one (in lane order),
+  // and in `total` the sum over all of them, the same on every lane.
+  BRT_HD int excl_scan(int v, int& total) const {
+#ifdef __CUDA_ARCH__
+    if constexpr (G > 1) {
+      int incl = v;
+#pragma unroll
+      for (int o = 1; o < G; o <<= 1) {
+        const int up = __shfl_up_sync(mask, incl, o, G);
+        if (lane >= o) incl += up;
+      }
+      total = __shfl_sync(mask, incl, G - 1, G);
+      return incl - v;
+    }
+#endif
+    total = v;
+    return 0;
   }
 };
 
-// One env's rows and solver scratch, in shared memory on the card (a
-// per-thread array on the host), column-major with an odd column stride:
-// the lanes of a team walk consecutive rows of one column without bank
-// conflicts, and the entry loop reads columns r and c of one row at
-// distinct banks. Columns: J (NV), aref, D, jar (J a - aref), Jd (J step),
+// One env's rows and solver scratch for a team of lanes, column-major, in
+// shared memory on the card (a plain array in the host builds, a team of
+// one lane). The column stride is odd, so the lanes of a team walk
+// consecutive rows of one column without bank conflicts, and the entry
+// loop reads columns r and c of one row at distinct banks. Columns: J (NV), aref, D, jar (J a - aref), Jd (J step),
 // w (active weight, then the constraint force), then the Hessian's lower
 // triangle and the gradient as the lanes that own them leave them.
 template <typename T, int NV, int MAXROW>
@@ -840,6 +684,21 @@ struct TeamRows {
       ob = (e - NE) * RS;
     }
   }
+};
+
+// One env's rows for a team of one lane, in the thread's own array: J
+// row-major, so that a row's NV columns are adjacent (vector loads), then
+// aref, D, jar and Jd. team_solve takes a single lane's weights and forces
+// row by row and keeps its Hessian in registers, so there is no w and no H.
+template <typename T, int NV, int MAXROW>
+struct LaneRows {
+  static constexpr int SIZE = (NV + 4) * MAXROW;   // values per env
+  T* base;
+  BRT_HD T& J(int r, int j) const { return base[r * NV + j]; }
+  BRT_HD T& aref(int r) const { return base[NV * MAXROW + r]; }
+  BRT_HD T& D(int r) const { return base[(NV + 1) * MAXROW + r]; }
+  BRT_HD T& jar(int r) const { return base[(NV + 2) * MAXROW + r]; }
+  BRT_HD T& Jd(int r) const { return base[(NV + 3) * MAXROW + r]; }
 };
 
 // M x for the mass matrix of the team kernels: the robot's 8 x 8 block Mr
@@ -883,32 +742,44 @@ BRT_HD void factor_solve_split(const F& H, const T ng[NV], T step[NV]) {
   }
 }
 
-// solve_and_integrate for a team on TeamRows: the same algorithm with the
-// row loops split over the lanes (row = lane, lane + G, ...) and the
-// Hessian and gradient split by entry: each lane owns entries of the
-// lower triangle of H and of g and walks every active row for them, so no
-// partial Hessian has to be reduced. M is Mr (8 x 8) plus, for NV = 14,
+// From the rows to the new velocity, for a team on TeamRows: warm start
+// chosen by cost, Newton with an exact line search (fixed trip counts),
+// constraint forces, and the implicitfast update qvel += h (M - h D)^-1
+// qfrc. Every one of the nrow rows is a live contact row; rows that are
+// inactive at the current iterate add exact zeros. The row loops are split
+// over the lanes (row = lane, lane + G, ...) and the Hessian and gradient
+// by entry: each lane owns entries of the lower triangle of H and of g and
+// walks every active row for them, so no partial Hessian has to be
+// reduced. M is Mr (8 x 8) plus, for NV = 14,
 // the block's diagonal (mb, Ib). Rows from `couple_row` on couple the robot
 // and the block (K2's chassis-block and wheel-block contacts): while none
 // of them is active, H is block-diagonal and is factorized as 8 x 8 and
 // 6 x 6, which gives the bits of the 14 x 14 factorization (its
 // off-block entries are exact zeros). Mr's wheel diagonal is overwritten.
-template <typename T, int NV, int MAXROW, class Tm>
-BRT_HD void team_solve(const Tm& tm, const TeamRows<T, NV, MAXROW>& rw,
-                       int nrow, int couple_row, T Mr[8][8], T mb, T Ib,
-                       const T a_smooth[NV], const T qfrc_smooth[NV],
-                       const T dfdv[2], const Params& p, int newton_iters,
-                       int ls_iters, T* qvel, T* ws) {
+// A team of one lane (G = 1) takes each row's Hessian and gradient entries
+// and its constraint force in the same pass as its J a - aref, from J in
+// registers, and keeps H in registers: the same operations in the same
+// order, so the same bits, on a row store R with J, aref, D, jar and Jd
+// (LaneRows).
+template <typename T, int NV, int MAXROW, class Tm,
+          class R = TeamRows<T, NV, MAXROW>>
+BRT_HD void team_solve(const Tm& tm, const R& rw, int nrow, int couple_row,
+                       T Mr[8][8], T mb, T Ib, const T a_smooth[NV],
+                       const T qfrc_smooth[NV], const T dfdv[2],
+                       const Params& p, int newton_iters, int ls_iters,
+                       T* qvel, T* ws) {
   constexpr int G = Tm::G;
-  constexpr int NE = TeamRows<T, NV, MAXROW>::NE;
+  constexpr int NE = NV * (NV + 1) / 2;
   constexpr int KPL = (NE + NV + G - 1) / G;   // entries per lane
   const T* base = rw.base;
   int oa[KPL], ob[KPL];
+  if constexpr (G > 1) {
 #pragma unroll
-  for (int k = 0; k < KPL; ++k) {
-    const int e = tm.lane + k * G;
-    oa[k] = ob[k] = 0;
-    if (e < NE + NV) rw.entry_cols(e, oa[k], ob[k]);
+    for (int k = 0; k < KPL; ++k) {
+      const int e = tm.lane + k * G;
+      oa[k] = ob[k] = 0;
+      if (e < NE + NV) rw.entry_cols(e, oa[k], ob[k]);
+    }
   }
 
   // ---- warm start: the better of ws and a_smooth by cost
@@ -948,43 +819,78 @@ BRT_HD void team_solve(const Tm& tm, const TeamRows<T, NV, MAXROW>& rw,
     for (int j = 0; j < NV; ++j) da[j] = a[j] - a_smooth[j];
     mass_mul<T, NV>(Mr, mb, Ib, da, Mda);
     bool coupled = false;
-#pragma unroll 1
-    for (int row = tm.lane; row < nrow; row += G) {
-      T s = rw.J(row, 0) * a[0];
-#pragma unroll
-      for (int j = 1; j < NV; ++j) s = s + rw.J(row, j) * a[j];
-      s = s - rw.aref(row);
-      rw.jar(row) = s;
-      T wgt = rw.D(row) * (s < T(0.0) ? T(1.0) : T(0.0));
-      rw.w(row) = wgt;
-      coupled = coupled || (row >= couple_row && wgt != T(0.0));
-    }
-    coupled = tm.any(coupled);
-    tm.sync();
     T acc[KPL];
+    if constexpr (G == 1) {
+      // entry e of acc is entry e of the lower triangle of H, then of g
 #pragma unroll
-    for (int k = 0; k < KPL; ++k) acc[k] = T(0.0);
+      for (int k = 0; k < KPL; ++k) acc[k] = T(0.0);
 #pragma unroll 1
-    for (int row = 0; row < nrow; ++row) {
-      const T wgt = rw.w(row);
-      if (wgt != T(0.0)) {
+      for (int row = 0; row < nrow; ++row) {
+        T Jr[NV];
 #pragma unroll
-        for (int k = 0; k < KPL; ++k)
-          if (tm.lane + k * G < NE + NV)
-            acc[k] = acc[k] + (wgt * base[oa[k] + row]) * base[ob[k] + row];
+        for (int j = 0; j < NV; ++j) Jr[j] = rw.J(row, j);
+        T s = Jr[0] * a[0];
+#pragma unroll
+        for (int j = 1; j < NV; ++j) s = s + Jr[j] * a[j];
+        s = s - rw.aref(row);
+        rw.jar(row) = s;
+        const T wgt = rw.D(row) * (s < T(0.0) ? T(1.0) : T(0.0));
+        coupled = coupled || (row >= couple_row && wgt != T(0.0));
+        if (wgt != T(0.0)) {
+#pragma unroll
+          for (int r = 0; r < NV; ++r)
+#pragma unroll
+            for (int c = 0; c <= r; ++c)
+              acc[r * (r + 1) / 2 + c] =
+                  acc[r * (r + 1) / 2 + c] + (wgt * Jr[r]) * Jr[c];
+#pragma unroll
+          for (int j = 0; j < NV; ++j)
+            acc[NE + j] = acc[NE + j] + (wgt * s) * Jr[j];
+        }
       }
-    }
+    } else {
+#pragma unroll 1
+      for (int row = tm.lane; row < nrow; row += G) {
+        T s = rw.J(row, 0) * a[0];
 #pragma unroll
-    for (int k = 0; k < KPL; ++k)
-      if (tm.lane + k * G < NE + NV) rw.H(tm.lane + k * G) = acc[k];
-    tm.sync();
+        for (int j = 1; j < NV; ++j) s = s + rw.J(row, j) * a[j];
+        s = s - rw.aref(row);
+        rw.jar(row) = s;
+        T wgt = rw.D(row) * (s < T(0.0) ? T(1.0) : T(0.0));
+        rw.w(row) = wgt;
+        coupled = coupled || (row >= couple_row && wgt != T(0.0));
+      }
+      coupled = tm.any(coupled);
+      tm.sync();
+#pragma unroll
+      for (int k = 0; k < KPL; ++k) acc[k] = T(0.0);
+#pragma unroll 1
+      for (int row = 0; row < nrow; ++row) {
+        const T wgt = rw.w(row);
+        if (wgt != T(0.0)) {
+#pragma unroll
+          for (int k = 0; k < KPL; ++k)
+            if (tm.lane + k * G < NE + NV)
+              acc[k] = acc[k] + (wgt * base[oa[k] + row]) * base[ob[k] + row];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < KPL; ++k)
+        if (tm.lane + k * G < NE + NV) rw.H(tm.lane + k * G) = acc[k];
+      tm.sync();
+    }
     // H = M + the lanes' sums, read from shared memory entry by entry as
-    // the factorization needs it: only the factor lives in registers
+    // the factorization needs it (one lane: from its registers): only the
+    // factor lives in registers
+    const auto Hsum = [&](int e) {
+      if constexpr (G == 1) return acc[e];
+      else return rw.H(e);
+    };
     T ng[NV], step[NV];
 #pragma unroll
-    for (int r = 0; r < NV; ++r) ng[r] = -(Mda[r] + rw.H(NE + r));
+    for (int r = 0; r < NV; ++r) ng[r] = -(Mda[r] + Hsum(NE + r));
     const auto H = [&](int r, int c) {
-      const T h = rw.H(r * (r + 1) / 2 + c);
+      const T h = Hsum(r * (r + 1) / 2 + c);
       if (r < 8) return Mr[r][c] + h;
       return r == c ? (r < 11 ? mb : Ib) + h : h;
     };
@@ -1036,25 +942,46 @@ BRT_HD void team_solve(const Tm& tm, const TeamRows<T, NV, MAXROW>& rw,
 
   // ---- constraint forces (by entry, as the gradient) and implicitfast
   // integration
-#pragma unroll 1
-  for (int row = tm.lane; row < nrow; row += G) {
-    T s = rw.J(row, 0) * a[0];
-#pragma unroll
-    for (int j = 1; j < NV; ++j) s = s + rw.J(row, j) * a[j];
-    s = s - rw.aref(row);
-    rw.w(row) = rw.D(row) * Max(-s, T(0.0));
-  }
-  tm.sync();
-  for (int j = tm.lane; j < NV; j += G) {
-    T q = T(0.0);
-#pragma unroll 1
-    for (int row = 0; row < nrow; ++row) q = q + rw.w(row) * rw.J(row, j);
-    rw.H(j) = q;
-  }
-  tm.sync();
   T qfrc[NV];
+  if constexpr (G == 1) {
+    T qcon[NV];
 #pragma unroll
-  for (int j = 0; j < NV; ++j) qfrc[j] = qfrc_smooth[j] + rw.H(j);
+    for (int j = 0; j < NV; ++j) qcon[j] = T(0.0);
+#pragma unroll 1
+    for (int row = 0; row < nrow; ++row) {
+      T Jr[NV];
+#pragma unroll
+      for (int j = 0; j < NV; ++j) Jr[j] = rw.J(row, j);
+      T s = Jr[0] * a[0];
+#pragma unroll
+      for (int j = 1; j < NV; ++j) s = s + Jr[j] * a[j];
+      s = s - rw.aref(row);
+      const T f = rw.D(row) * Max(-s, T(0.0));
+#pragma unroll
+      for (int j = 0; j < NV; ++j) qcon[j] = qcon[j] + f * Jr[j];
+    }
+#pragma unroll
+    for (int j = 0; j < NV; ++j) qfrc[j] = qfrc_smooth[j] + qcon[j];
+  } else {
+#pragma unroll 1
+    for (int row = tm.lane; row < nrow; row += G) {
+      T s = rw.J(row, 0) * a[0];
+#pragma unroll
+      for (int j = 1; j < NV; ++j) s = s + rw.J(row, j) * a[j];
+      s = s - rw.aref(row);
+      rw.w(row) = rw.D(row) * Max(-s, T(0.0));
+    }
+    tm.sync();
+    for (int j = tm.lane; j < NV; j += G) {
+      T q = T(0.0);
+#pragma unroll 1
+      for (int row = 0; row < nrow; ++row) q = q + rw.w(row) * rw.J(row, j);
+      rw.H(j) = q;
+    }
+    tm.sync();
+#pragma unroll
+    for (int j = 0; j < NV; ++j) qfrc[j] = qfrc_smooth[j] + rw.H(j);
+  }
   const T h = T(p.timestep);
   for (int i = 0; i < 2; ++i)
     Mr[6 + i][6 + i] = Mr[6 + i][6 + i] - h * (T(-p.damping) + dfdv[i]);

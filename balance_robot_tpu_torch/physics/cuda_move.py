@@ -13,6 +13,14 @@ state decides, and a CUDA call that cannot build or launch raises.
 `cuda_step.control_step`, which the envs call, sends a scene with walls
 here.
 
+The one source holds two instantiations of the kernel on the team solver
+of K1 and K2, and the batch size picks one: below the crossover that the
+`.cu` header names (serving batches), a team of 32 lanes per env with its
+rows in shared memory; from it on (the 4096-env main path), one thread per
+env with its rows in its own local array. `launch_config(dtype, B)` reads
+the choice from the library (`k3_launch_config`), and the launch passes it
+on; there is no other way in.
+
 The kernel is built at first use by `kernel_build.py` (nvcc, ctypes).
 """
 
@@ -101,8 +109,12 @@ def _bind(path):
     for name in ("k3_control_step_f32", "k3_control_step_f64"):
         fn = getattr(lib, name, None)
         if fn is not None:
-            fn.argtypes = [ptr] * 7 + [i32, P] + [i32] * 3 + [ptr]
+            fn.argtypes = [ptr] * 7 + [i32, P] + [i32] * 4 + [ptr]
             fn.restype = i32
+    lib.k3_crossover.argtypes = []
+    lib.k3_crossover.restype = i32
+    lib.k3_launch_config.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 3
+    lib.k3_launch_config.restype = None
     dptr = ctypes.POINTER(ctypes.c_double)
     lib.k3_count_ops.argtypes = [dptr] * 7 + [P] + [i32] * 3
     lib.k3_count_ops.restype = ctypes.c_longlong
@@ -118,10 +130,28 @@ def build(process=None):
     return _lib
 
 
+def crossover(lib=None):
+    """The batch from which K3 runs one lane per env (the `.cu` header's
+    BRT_K3_CROSSOVER)."""
+    return (lib or build()).k3_crossover()
+
+
+def launch_config(dtype, B, lib=None):
+    """(lanes per env, envs per block, shared bytes per block) of the
+    instantiation that a launch of B envs of `dtype` (torch.float32 or
+    torch.float64) takes. `lib`: as for `count_ops`."""
+    import ctypes
+    vals = [ctypes.c_int() for _ in range(3)]
+    (lib or build()).k3_launch_config(int(dtype == torch.float64), B,
+                                      *(ctypes.byref(v) for v in vals))
+    return tuple(v.value for v in vals)
+
+
 # ------------------------------------------------------------ launch
 
 def control_step_walls_cuda(qpos, qvel, ws, ctrl, params, frame_skip=250):
-    """Launch K3 on the current stream; CUDA tensors only."""
+    """Launch K3 on the current stream, with the instantiation that
+    `launch_config` names for the batch; CUDA tensors only."""
     global launches
     B = qpos.shape[0]
     cuda_step.check_kernel_args("K3", qpos, [
@@ -134,13 +164,14 @@ def control_step_walls_cuda(qpos, qvel, ws, ctrl, params, frame_skip=250):
     lib = build()
     fn = (lib.k3_control_step_f32 if qpos.dtype == torch.float32
           else lib.k3_control_step_f64)
+    team = launch_config(qpos.dtype, B, lib)[0]
     import ctypes
     with torch.cuda.device(qpos.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(qpos.data_ptr(), qvel.data_ptr(), ws.data_ptr(),
                  ctrl.data_ptr(), qp.data_ptr(), qv.data_ptr(), w.data_ptr(),
                  B, ctypes.byref(kp), params.newton_iters, params.ls_iters,
-                 frame_skip, stream)
+                 frame_skip, team, stream)
     if err != 0:
         raise RuntimeError(f"K3 launch failed: CUDA error {err}")
     launches += 1

@@ -6,12 +6,15 @@ Phases, in order; any failure exits non-zero before the final line:
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: K1 (csrc/control_step.cu), K2 (csrc/control_step14.cu) and K3
      (csrc/control_step_walls.cu) with nvcc, all compiles started together,
-     and ptxas's registers, stack and spills of each;
+     and ptxas's registers, stack and spills of each beside its launch
+     shape (K3: both instantiations, on each side of its crossover);
   3. each kernel against its plain PyTorch version on the card, B = 257
      (ragged), one control step (250 substeps), the same inputs on both
      sides: K1 on robot-floor states, K2 on robot + block states on which
      every block collider must have been active, K3 on robot-at-the-wall
-     states on which every wall collider must have been active;
+     states on which every wall collider must have been active, at B = 257
+     and at a ragged batch above its crossover (its two instantiations;
+     float32 against the plain version in float64, see K3_F32_TOL);
   4. main paths at 4096 envs, 25 control steps, the checked-in PPO policies
      (forward + sample), fast solver: Env01-v2 must launch K1, Env03-v2 K2
      and EnvMove05-v1 (with its int8 inner policy inside every step) K3,
@@ -25,9 +28,10 @@ Phases, in order; any failure exits non-zero before the final line:
      package's float32 return (see RETURN_MOVE_JAX), a few Cal01 steps, and
      the int8 inner policy on the card against the CPU;
   6. times: K1, K2 and K3 and their plain versions at B = 4096 on the main
-     paths' states, against each kernel's bound; K1 at B = 256 (Env01
-     serving's batch) and K2 at B = 1024 at the exact grade (the flagship
-     serving's batch and grade).
+     paths' states, against each kernel's bound; K3 with every env at a wall
+     at B = 4096 and 512; K1 at B = 256 (Env01 serving's batch), K2 at
+     B = 1024 at the exact grade (the flagship serving's batch and grade)
+     and K3 at B = 512 at both grades (EnvMove05-v1 serving's batch).
 It ends with one JSON line per the contract: {"ok": true, "device": ...}.
 """
 
@@ -107,6 +111,13 @@ K2_F32_TOL = {"qpos": 6e-4, "qvel": 5e-1, "ws_rel": 1e-2}
 # earlier on one side (largest for the chassis face flush on the wall); the
 # warm-start figure is a robot landing on the floor in the main path's
 # fresh episodes, where qacc jumps by its own size within a substep.
+# Phase 3c holds K3's float32 output to the plain version in float64 on the
+# same inputs, the arithmetic both float32 versions round, and prints its
+# drift from the plain float32 version beside it: on the 1,118 at-the-wall
+# states above the crossover, the plain version in float32 on the card
+# departs from float64 by 0.12 in qvel where the chassis face lies flush
+# on the wall, while every K3 build, the one-thread design before too,
+# stays within 3.6e-3 of float64 (tools/k3_drift.py; PERF.md).
 K3_F32_TOL = {"qpos": 3e-4, "qvel": 1e-1, "ws_rel": 7e-2}
 
 
@@ -388,21 +399,32 @@ def bound(ops_per_env, n_envs, tensors):
                     f"{clock_mhz:.0f} MHz)"}
 
 
+def launch_shapes(module, dtype):
+    """[(batches, (lanes per env, envs per block, shared bytes per block))]
+    of a kernel's launch: one shape, or K3's two instantiations, on each
+    side of its crossover."""
+    if not hasattr(module, "crossover"):
+        return [("", module.launch_config(dtype))]
+    X = module.crossover()
+    return [(f" B < {X}", module.launch_config(dtype, 1)),
+            (f" B >= {X}", module.launch_config(dtype, X))]
+
+
 def print_build(name, module):
     info = module.build_info
     print(f"build: {name} in {info['seconds']:.1f} s "
           f"({'reused' if info['cached'] else 'compiled'})")
-    config = getattr(module, "launch_config", None)
-    if config is None:
-        print("  launch: one thread per env, 32 per block, no shared memory")
-    else:
-        for dtype in (torch.float32, torch.float64):
-            team, envs, smem = config(dtype)
-            print(f"  launch {str(dtype)[6:]}: a team of {team} lanes per "
-                  f"env, {envs} envs per block, {smem} bytes of shared "
-                  "memory per block")
+    for dtype in (torch.float32, torch.float64):
+        for batches, (team, envs, smem) in launch_shapes(module, dtype):
+            print(f"  launch {str(dtype)[6:]}{batches}: a team of {team} "
+                  f"lanes per env, {envs} envs per block, {smem} bytes of "
+                  "shared memory per block"
+                  + (" (rows in each thread's local memory)"
+                     if team == 1 else ""))
     for line in info["ptxas"].splitlines():
-        if "spill" in line or "Used" in line or "stack frame" in line:
+        if "Compiling entry function" in line:   # the kernel's mangled name
+            print("  ptxas:", line.split("'")[1])
+        elif "spill" in line or "Used" in line or "stack frame" in line:
             print("  ptxas:", line.strip())
 
 
@@ -490,8 +512,8 @@ def main():
         max_f64 = {name: 0.0 for name in modules}
         max_f32 = {name: dict(zero_drift) for name in modules}
 
-        def record(kernel, dtype, name, d, tol32):
-            print(f"{kernel} vs plain {name} {str(dtype)[6:]} B={CHECK_B}: "
+        def record(kernel, dtype, name, d, tol32, B=CHECK_B, vs="plain"):
+            print(f"{kernel} vs {vs} {name} {str(dtype)[6:]} B={B}: "
                   + ", ".join(f"{key} {v:.3e}" for key, v in d.items()))
             if dtype == torch.float64:
                 check(within(d, F64_TOL), f"{kernel} f64 disagrees: {d}")
@@ -542,33 +564,51 @@ def main():
                   f"a block collider was never active: {active}")
             record("K2", dtype, name, drift(k, p), K2_F32_TOL)
 
-        # ---- 3c. K3 vs its plain version, B = 257, on states where every
-        # wall collider is active during the step
+        # ---- 3c. K3 vs its plain version on states where every wall
+        # collider is active during the step, at B = 257 and at a ragged
+        # batch above the crossover: through both instantiations
         move_fast = fast_solver(MOVE05_PARAMS)
         cases = [(torch.float64, "EnvMove05 exact", MOVE05_PARAMS),
                  (torch.float64, "EnvMove05 fast", move_fast),
                  (torch.float32, "EnvMove05 fast", move_fast)]
-        for dtype, name, params in cases:
-            qpos, qvel, ctrl = (
-                torch.tensor(x, dtype=dtype, device="cuda")
-                for x in random_states_walls(rng, CHECK_B))
-            ws = torch.zeros_like(qvel)
-            k = cuda_move.control_step_walls_cuda(qpos, qvel, ws, ctrl,
-                                                  params)
-            seen = {}
-            p = cuda_move.control_step_walls_plain(qpos, qvel, ws, ctrl,
-                                                   params,
-                                                   contact_counts=seen)
-            torch.cuda.synchronize()
-            check(all(torch.isfinite(t).all() for t in k + p),
-                  f"non-finite K3/plain output ({name}, {dtype})")
-            active = {key: int(v.sum()) for key, v in seen.items()}
-            print(f"K3 check {name} {str(dtype)[6:]}: envs with an active "
-                  f"contact during the step: {active}")
-            check(set(active) == set(st.WALL_CONTACT_KINDS)
-                  and all(n > 0 for n in active.values()),
-                  f"a wall collider was never active: {active}")
-            record("K3", dtype, name, drift(k, p), K3_F32_TOL)
+        batches = (CHECK_B, cuda_move.crossover() + 61)
+        teams = {B: cuda_move.launch_config(torch.float32, B)[0]
+                 for B in batches}
+        check(len(set(teams.values())) == 2,
+              f"K3's checks must reach both instantiations: {teams}")
+        for B in batches:
+            for dtype, name, params in cases:
+                qpos, qvel, ctrl = (
+                    torch.tensor(x, dtype=dtype, device="cuda")
+                    for x in random_states_walls(rng, B))
+                ws = torch.zeros_like(qvel)
+                k = cuda_move.control_step_walls_cuda(qpos, qvel, ws, ctrl,
+                                                      params)
+                seen = {}
+                p = cuda_move.control_step_walls_plain(qpos, qvel, ws, ctrl,
+                                                       params,
+                                                       contact_counts=seen)
+                torch.cuda.synchronize()
+                check(all(torch.isfinite(t).all() for t in k + p),
+                      f"non-finite K3/plain output ({name}, {dtype}, B={B})")
+                active = {key: int(v.sum()) for key, v in seen.items()}
+                print(f"K3 check {name} {str(dtype)[6:]} B={B} (a team of "
+                      f"{teams[B]} lanes per env): envs with an active "
+                      f"contact during the step: {active}")
+                check(set(active) == set(st.WALL_CONTACT_KINDS)
+                      and all(n > 0 for n in active.values()),
+                      f"a wall collider was never active: {active}")
+                if dtype == torch.float32:   # see K3_F32_TOL
+                    d = drift(k, p)
+                    print(f"K3 vs plain {name} float32 B={B} (printed, not "
+                          "held): " + ", ".join(f"{key} {v:.3e}"
+                                                for key, v in d.items()))
+                    p = cuda_move.control_step_walls_plain(
+                        *(t.double() for t in (qpos, qvel, ws, ctrl)), params)
+                    record("K3", dtype, name, drift(k, p), K3_F32_TOL, B,
+                           "plain in float64")
+                else:
+                    record("K3", dtype, name, drift(k, p), K3_F32_TOL, B)
 
         # ---- 4. main paths
         gen = torch.Generator(device="cuda")
@@ -749,7 +789,9 @@ def main():
             shared_tanh = card_fn(inner_obs.cuda()).cpu()
         check(torch.equal(shared_tanh, on_cpu),
               "the int8 policy's integer arithmetic differs between the card "
-              "and the CPU")
+              f"and the CPU: {int((shared_tanh != on_cpu).sum())} of "
+              f"{on_cpu.numel()} outputs, by up to "
+              f"{(shared_tanh - on_cpu).abs().max().item():.3e}")
         lsb = (on_card - on_cpu).abs() / float(env_move.inner.out_q.scale)
         n_diff = int((lsb > 0.5).sum())
         print(f"int8 inner policy, card vs CPU on {N_ENVS} obs: equal on all "
@@ -802,27 +844,32 @@ def main():
                 (env03.params,), K2_F32_TOL, True)
         qpos, qvel, ws = states_move.phys
         _, ctrl = env_move.wheel_ctrl(states_move, act(policy_move, obs_move))
+        move_inputs = (qpos, qvel, ws, ctrl)
         measure("K3", cuda_move, cuda_move.control_step_walls_cuda,
-                cuda_move.control_step_walls_plain, (qpos, qvel, ws, ctrl),
+                cuda_move.control_step_walls_plain, move_inputs,
                 (env_move.params,), K3_F32_TOL, True)
         # no env of the main path touches a wall (phase 4 prints the count),
         # so the K3 time above is for floor rows only: time it once more
-        # with every env at a wall
+        # with every env at a wall, at the main path's batch (one lane per
+        # env) and at the serving batch (a team per env)
         at_wall = [torch.tensor(x, dtype=torch.float32, device="cuda")
                    for x in random_states_walls(np.random.default_rng(5),
                                                 N_ENVS)]
         at_wall.insert(2, torch.zeros_like(at_wall[1]))
-        wall_ms = time_kernel(lambda: cuda_move.control_step_walls_cuda(
-            *at_wall, env_move.params))
         wall_ops = float(np.mean(cuda_move.count_ops(
             *(t[sample].cpu() for t in at_wall), env_move.params)[0]))
-        print(f"K3 B={N_ENVS} f32 fast with every env at a wall: median "
-              f"{wall_ms:.3f} ms over {TIMED_LAUNCHES} launches; "
-              f"{wall_ops:.0f} ops/env/control step")
+        for B in (N_ENVS, n_move):
+            tensors = [t[:B].contiguous() for t in at_wall]
+            wall_ms = time_kernel(lambda: cuda_move.control_step_walls_cuda(
+                *tensors, env_move.params))
+            print(f"K3 B={B} f32 fast with every env at a wall (a team of "
+                  f"{cuda_move.launch_config(torch.float32, B)[0]} lanes per "
+                  f"env): median {wall_ms:.3f} ms over {TIMED_LAUNCHES} "
+                  f"launches; {wall_ops:.0f} ops/env/control step")
 
         # the serving batches: Env01-v2 at 256 envs, the flagship Env03-v2
-        # at 1024 envs and the exact grade; the first envs of the main
-        # paths' states
+        # at 1024 envs and the exact grade, EnvMove05-v1 at 512 envs and
+        # both grades; the first envs of the main paths' states
         def serving_time(name, module, kernel, tensors, extra, grade):
             B = tensors[0].shape[0]
             ms = time_kernel(lambda: kernel(*tensors, *extra))
@@ -845,6 +892,11 @@ def main():
         serving_time("K2", cuda_block, cuda_block.control_step14_cuda,
                      [t[:n03].contiguous() for t in (qpos, qvel, ws, ctrl)],
                      (bs.ENV03_PARAMS,), "exact")
+        for grade, params in (("fast", env_move.params),
+                              ("exact", MOVE05_PARAMS)):
+            serving_time("K3", cuda_move, cuda_move.control_step_walls_cuda,
+                         [t[:n_move].contiguous() for t in move_inputs],
+                         (params,), grade)
 
         for name, k_ms, plain_ms, ops, b in report:
             print(f"{name} B={N_ENVS} f32 fast: median {k_ms:.3f} ms over "

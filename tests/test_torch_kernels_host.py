@@ -14,8 +14,11 @@ includes, so an edit to a shared header rebuilds every kernel that includes
 it.
 """
 
+import contextlib
+import re
 import shutil
 import subprocess
+import types
 
 import numpy as np
 import pytest
@@ -131,9 +134,55 @@ def test_k3_host_build_matches_plain(host_libs, fast):
     assert set(seen) == set(st.WALL_CONTACT_KINDS)
     assert all(int(v.sum()) > 0 for v in seen.values()), seen
     # only included contacts are stored, so K3 does fewer operations on
-    # these states than K1 on its 64 masked rows (~60k fast / ~125k exact)
+    # these states than K1 on its 64 masked rows (~60k fast / ~125k exact):
+    # on the team solver as a team of one lane ~12-35k fast / ~15-62k exact
     per_substep = np.array(counts) / FRAME_SKIP
     assert (per_substep > 1e4).all() and (per_substep < 1.25e5).all()
+
+
+def test_k3_wrapper_launches_the_instantiation_the_header_names(
+        host_libs, monkeypatch):
+    """The K3 wrapper hands the launch the team that the library's
+    k3_launch_config gives for the batch: the `.cu` header's small-batch
+    team below its crossover, one lane per env from the crossover on."""
+    lib = host_libs["k3"]
+    header = (kernel_build.CSRC / cuda_move.SOURCE).read_text()
+    team = int(re.search(r"#define BRT_K3_TEAM (\d+)", header).group(1))
+    X = cuda_move.crossover(lib)
+    assert f"#define BRT_K3_CROSSOVER {X}\n" in header and team > 1
+    batches = (1, X - 1, X, 4096)
+    launched = []
+
+    class Lib:
+        """The host library, with a launch that records its team."""
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        def k3_control_step_f32(self, *args):
+            launched.append(args[-2])
+            return 0
+
+    monkeypatch.setattr(cuda_move, "_lib", Lib())
+    monkeypatch.setattr(cuda_move, "launches", 0)
+    monkeypatch.setattr(cuda_step, "check_kernel_args", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    for B in batches:
+        cuda_move.control_step_walls_cuda(
+            *(torch.zeros(B, n) for n in (9, 8, 8, 2)), MOVE05_PARAMS)
+    assert launched == [cuda_move.launch_config(torch.float32, B, lib)[0]
+                        for B in batches] == [team, team, 1, 1]
+    assert cuda_move.launches == len(batches)
+    # the team keeps the env's 272 rows (13 columns of 273, 44 Hessian and
+    # gradient entries) in shared memory; one lane keeps them in its own
+    # local array
+    size = 13 * 273 + 44
+    for dtype, nbytes in ((torch.float32, 4), (torch.float64, 8)):
+        assert cuda_move.launch_config(dtype, 1, lib) == (
+            team, 32 // team, 32 // team * size * nbytes)
+        assert cuda_move.launch_config(dtype, X, lib) == (1, 32, 0)
 
 
 def test_a_header_edit_changes_both_kernels_hashes(tmp_path, monkeypatch):

@@ -367,29 +367,39 @@ def test_k2_matches_plain_on_the_card():
 
 @pytest.mark.cuda
 def test_k3_matches_plain_on_the_card():
-    """K3 against its plain version on the GPU (float64, ragged batch, a
-    short control step at both solver grades, every wall contact kind
-    active), a float32 launch at the serving batch, and the refusals that
-    need real CUDA tensors."""
+    """K3 against its plain version on the GPU (float64, a short control
+    step at both solver grades) at B = 1, at a ragged batch and on each side
+    of the crossover, so through both instantiations, with every wall
+    contact kind active; a float32 launch at the main path's batch, and the
+    refusals that need real CUDA tensors."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (and nvcc to build K3)")
     from balance_robot_tpu_torch.physics import step as st
-    B = 61
-    qpos, qvel, ctrl = wall_states(B)
-    for params in (MOVE05_PARAMS, fast_solver(MOVE05_PARAMS)):
-        args = [t.cuda() for t in (qpos, qvel, torch.zeros_like(qvel), ctrl)]
-        before = cuda_move.launches
-        out = cuda_step.control_step(*args, None, params, frame_skip=40)
-        assert cuda_move.launches == before + 1
-        seen = {}
-        ref = cuda_move.control_step_walls_plain(*args, params,
-                                                 frame_skip=40,
-                                                 contact_counts=seen)
-        for a, b in zip(out, ref):
-            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9)
-        assert set(seen) == set(st.WALL_CONTACT_KINDS)
-        assert all(int(v.sum()) > 0 for v in seen.values()), seen
-    print(json.dumps(cuda_move.build_info["resources"]))
+    X = cuda_move.crossover()
+    team = cuda_move.launch_config(torch.float64, 1)[0]
+    assert team > 1
+    for B in (1, 61, X - 1, X + 1):
+        assert cuda_move.launch_config(torch.float64, B)[0] == (
+            team if B < X else 1)
+        qpos, qvel, ctrl = wall_states(B)
+        for params in (MOVE05_PARAMS, fast_solver(MOVE05_PARAMS)):
+            args = [t.cuda() for t in (qpos, qvel, torch.zeros_like(qvel),
+                                       ctrl)]
+            before = cuda_move.launches
+            out = cuda_step.control_step(*args, None, params, frame_skip=40)
+            assert cuda_move.launches == before + 1
+            seen = {}
+            ref = cuda_move.control_step_walls_plain(*args, params,
+                                                     frame_skip=40,
+                                                     contact_counts=seen)
+            for a, b in zip(out, ref):
+                torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9)
+            if B > 1:
+                assert set(seen) == set(st.WALL_CONTACT_KINDS)
+                assert all(int(v.sum()) > 0 for v in seen.values()), seen
+    print(json.dumps(cuda_move.build_info["resources"]),
+          cuda_move.launch_config(torch.float32, 1),
+          cuda_move.launch_config(torch.float32, X))
     with pytest.raises(ValueError, match="K3: qvel must have shape"):
         cuda_move.control_step_walls_cuda(args[0], args[0], args[2], args[3],
                                           MOVE05_PARAMS)

@@ -1,34 +1,46 @@
-"""Time the port's K1 and K2 kernels against other builds of them, in turns,
-in one process on one GPU.
+"""Time the port's K1, K2 and K3 kernels against other builds of them, in
+turns, in one process on one GPU.
 
-    python tools/time_kernels.py [--variant K2:BRT_K2_TEAM=8 ...]
-                                 [--old-csrc DIR] [--rounds 2] [--out FILE]
+    python tools/time_kernels.py [--kernels K1,K2,K3]
+                                 [--variant K2:BRT_K2_TEAM=8 ...]
+                                 [--old-csrc DIR] [--rounds 2] [--serving]
+                                 [--out FILE]
 
-Builds K1 (`csrc/control_step.cu`) and K2 (`csrc/control_step14.cu`) as
-they are, once more for each --variant KERNEL:NAME=VALUE[:NAME=VALUE...]
-with those macros defined (`BRT_K1_TEAM` / `BRT_K2_TEAM`: lanes per env;
-`BRT_K1_MINB` / `BRT_K2_MINB`: the blocks per SM that `__launch_bounds__`
-asks registers for), and, with --old-csrc, from another checkout's `csrc/`
-directory (an earlier design with the same C interface), all nvcc runs
-started together. The inputs are the states chip_smoke.py times: the
-Env01-v2 and Env03-v2 main paths (4096 envs, 25 steps of the checked-in
-policies, fast solver), run through the default build. Cases: K1 at
-B = 4096 and 256 (Env01 serving's batch), fast grade; K2 at B = 4096, fast
-grade, and at B = 1024, exact grade (the flagship serving's batch and
-grade); the first B envs of the main path's states, float32; and K2 at
-B = 4096, fast grade, on chip_smoke.random_states14's impact states, where
-a third of the envs have the block against the robot (the 14 x 14
-factorization of a coupled Hessian), and on the Env03-v2 main path's states
-after its first step (fresh episodes, the block in flight). Last, the
-Env01-v2 and Env03-v2 main paths themselves (chip_smoke.py phase 4: 4096
-envs, 25 sampled steps from fresh episodes) with each build of their
-kernel, in turns, by the host clock around a synchronize. In each case
-the builds are timed in turns (a, b, ..., b, a), --rounds times, each time
-the median of chip_smoke.TIMED_LAUNCHES launches by CUDA events, and each
-build's outputs are compared with the default build's. Prints one line per
-build and case and writes everything as JSON to --out.
+Builds K1 (`csrc/control_step.cu`), K2 (`csrc/control_step14.cu`) and K3
+(`csrc/control_step_walls.cu`), or those of --kernels, as they are, once
+more for each --variant KERNEL:NAME=VALUE[:NAME=VALUE...] with those macros
+defined (`BRT_K1_TEAM` / `BRT_K2_TEAM` / `BRT_K3_TEAM`: lanes per env, for
+K3 below its crossover; `BRT_K*_MINB`: the blocks per SM that
+`__launch_bounds__` asks registers for; `BRT_K3_CROSSOVER`: the batch from
+which K3 runs one lane per env, 0 for always, a large one for never), and,
+with --old-csrc, from another checkout's `csrc/` directory (an earlier
+design with the same C interface, or for K3 the one of its one-thread
+design, which took no team), all nvcc runs started together. The inputs
+are the states chip_smoke.py times: the Env01-v2, Env03-v2 and EnvMove05-v1
+main paths (4096 envs, 25 steps of the checked-in policies, fast solver),
+run through the default build. Cases: K1 at B = 4096 and 256 (Env01
+serving's batch), fast grade; K2 at B = 4096, fast grade, and at B = 1024,
+exact grade (the flagship serving's batch and grade); K3 at B = 4096, 2048,
+1088, 1056 (one wave of its 32-lane team), 1024 and 512 (EnvMove05-v1
+serving's batch), fast grade, and at 512, exact grade; the first B envs of the main path's states, float32; K2 at B = 4096,
+fast grade, on chip_smoke.random_states14's impact states, where a third of
+the envs have the block against the robot (the 14 x 14 factorization of a
+coupled Hessian), and on the Env03-v2 main path's states after its first
+step (fresh episodes, the block in flight); K3 at B = 4096 and 512, fast
+grade, on chip_smoke.random_states_walls's states, every env at a wall.
+Then the main paths themselves (chip_smoke.py phase 4: 4096 envs, 25
+sampled steps from fresh episodes) with each build of their kernel, in
+turns, by the host clock around a synchronize; with --serving also
+EnvMove05-v1 serving (chip_smoke.py phase 5c: 2 x 256 episodes of 700
+steps in one batch, fast and exact grade) with the default and the old
+build of K3, in turns once. In each kernel case the builds are timed in turns (a, b, ..., b, a),
+--rounds times, each time the median of chip_smoke.TIMED_LAUNCHES launches
+by CUDA events, and each build's outputs are compared with the default
+build's. Prints one line per build and case and writes everything as JSON
+to --out.
 """
 import argparse
+import ctypes
 import json
 import pathlib
 import sys
@@ -43,7 +55,9 @@ import chip_smoke
 
 def main_path_inputs(brt, env_id, policy_path, gen):
     """(env, after, first): the kernel's inputs (qpos, qvel, ws, ctrl) after
-    chip_smoke.py's main path and after its first step (fresh episodes)."""
+    chip_smoke.py's main path and after its first step (fresh episodes).
+    ctrl is what the env's step hands the physics (EnvMove05-v1: its int8
+    inner policy's servo targets)."""
     from balance_robot_tpu_torch.envs.vector import VecEnv
     from balance_robot_tpu_torch.models import mlp
     from balance_robot_tpu_torch.train import checkpoint
@@ -56,6 +70,8 @@ def main_path_inputs(brt, env_id, policy_path, gen):
     def inputs():
         qpos, qvel, ws = states.phys
         act = policy.policy_mean(obs).clamp(-1.0, 1.0)
+        if hasattr(env, "wheel_ctrl"):
+            return qpos, qvel, ws, env.wheel_ctrl(states, act)[1]
         return qpos, qvel, ws, qvel[:, 6:8] + act * 4.0
 
     for step in range(chip_smoke.N_STEPS):
@@ -96,6 +112,70 @@ def main_path_seconds(brt, env_id, policy_path):
                                       zip(events, events[1:])]
 
 
+def serving_seconds(brt, grade):
+    """(seconds, mean return) of chip_smoke.py's EnvMove05-v1 serving at
+    `grade` (fast or exact)."""
+    import time
+    from balance_robot_tpu_torch.models import mlp
+    from balance_robot_tpu_torch.train import checkpoint
+    from balance_robot_tpu_torch.train.evaluation import ChunkedEvaluator
+    env = brt.make("EnvMove05-v1", seed=chip_smoke.SERVE_MOVE_SEED)
+    if grade == "fast":
+        env.use_fast_solver()
+    policy = mlp.from_numpy_params(checkpoint.load(chip_smoke.POLICY_MOVE),
+                                   device="cuda")
+    n = chip_smoke.SERVE_MOVE_DRAWS * chip_smoke.SERVE_MOVE_EPISODES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rets, _ = ChunkedEvaluator(
+        env, lambda net, o: net.policy_mean(o).clamp(-1.0, 1.0)
+    ).evaluate_detail(policy, n)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, float(rets.mean())
+
+
+class OldK3:
+    """A K3 library of the one-thread design (its C interface: no team
+    argument, no k3_launch_config) at `path`, bound to the current wrapper's
+    calls."""
+
+    def __init__(self, path):
+        from balance_robot_tpu_torch.physics import cuda_move
+        self.lib = lib = ctypes.CDLL(str(path))
+        P = ctypes.POINTER(cuda_move._params_struct())
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        for name in ("k3_control_step_f32", "k3_control_step_f64"):
+            getattr(lib, name).argtypes = [ptr] * 7 + [i32, P] \
+                + [i32] * 3 + [ptr]
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    def k3_launch_config(self, f64, B, team, envs, smem):
+        team._obj.value, envs._obj.value, smem._obj.value = 1, 32, 0
+
+    def k3_control_step_f32(self, *args):
+        return self.lib.k3_control_step_f32(*args[:-2], args[-1])
+
+    def k3_control_step_f64(self, *args):
+        return self.lib.k3_control_step_f64(*args[:-2], args[-1])
+
+
+def launch_shapes(mod, lib, dtype):
+    """{batches: (lanes per env, envs per block, shared bytes per block)}
+    of a build, or {} for a build without a launch-config entry."""
+    from balance_robot_tpu_torch.physics import cuda_step
+    if mod.LABEL != "k3":
+        fn = getattr(lib, f"{mod.LABEL}_launch_config", None)
+        return {} if fn is None else {
+            "all": cuda_step.read_launch_config(fn, dtype)}
+    if isinstance(lib, OldK3):
+        return {}
+    X = mod.crossover(lib)
+    return {f"B<{X}": mod.launch_config(dtype, 1, lib),
+            f"B>={X}": mod.launch_config(dtype, max(X, 1), lib)}
+
+
 def with_lib(mod, lib, fn):
     """Call fn() with `lib` as the module's kernel library."""
     saved, mod._lib = mod._lib, lib
@@ -107,12 +187,16 @@ def with_lib(mod, lib, fn):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernels", default="K1,K2,K3",
+                    help="which kernels to build and time, e.g. K3")
     ap.add_argument("--variant", action="append", default=[],
                     help="KERNEL:NAME=VALUE[:NAME=VALUE...], e.g. "
                          "K2:BRT_K2_TEAM=8:BRT_K2_MINB=4")
     ap.add_argument("--old-csrc", type=pathlib.Path,
                     help="csrc/ of an earlier design to time in turns")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--serving", action="store_true",
+                    help="also time EnvMove05-v1 serving with each K3 build")
     ap.add_argument("--out", type=pathlib.Path,
                     default=pathlib.Path("build/time_kernels.json"))
     opts = ap.parse_args()
@@ -121,13 +205,16 @@ def main():
     print(card)
 
     import balance_robot_tpu_torch as brt
+    from balance_robot_tpu_torch.envs.move import MOVE05_PARAMS
     from balance_robot_tpu_torch.physics import block_step as bs
-    from balance_robot_tpu_torch.physics import cuda_block, cuda_step
-    from balance_robot_tpu_torch.physics import kernel_build
+    from balance_robot_tpu_torch.physics import cuda_block, cuda_move
+    from balance_robot_tpu_torch.physics import cuda_step, kernel_build
 
     # ---- builds, all nvcc runs started together
-    kernels = {"K1": (cuda_step, "k1_launch_config"),
-               "K2": (cuda_block, "k2_launch_config")}
+    kernels = {"K1": (cuda_step, cuda_step.control_step_cuda),
+               "K2": (cuda_block, cuda_block.control_step14_cuda),
+               "K3": (cuda_move, cuda_move.control_step_walls_cuda)}
+    kernels = {k: kernels[k] for k in opts.kernels.split(",")}
     specs = []       # (kernel, build name, csrc, defines)
     for name in kernels:
         specs.append((name, "default", None, ()))
@@ -143,52 +230,71 @@ def main():
              for i, (k, _, csrc, defines) in enumerate(specs)]
     libs, report = {}, {"card": card, "builds": {}, "cases": {}}
     for i, ((k, bname, csrc, defines), proc) in enumerate(zip(specs, procs)):
-        mod, config = kernels[k]
+        mod = kernels[k][0]
         info = {}
         path = kernel_build.build(f"{mod.LABEL}_{i}", mod.SOURCE, info, proc,
                                   csrc, defines)
-        lib = mod._bind(path)
+        if k == "K3" and not hasattr(ctypes.CDLL(str(path)),
+                                     "k3_launch_config"):
+            lib = OldK3(path)
+        else:
+            lib = mod._bind(path)
         libs[k, bname] = lib
-        shape = {}
-        if hasattr(lib, config):
-            for dt in (torch.float32, torch.float64):
-                shape[str(dt)[6:]] = cuda_step.read_launch_config(
-                    getattr(lib, config), dt)
+        shape = {str(dt)[6:]: launch_shapes(mod, lib, dt)
+                 for dt in (torch.float32, torch.float64)}
         ptxas = [line.strip() for line in info["ptxas"].splitlines()
                  if "Used" in line or "spill" in line or "stack" in line]
         report["builds"][f"{k} {bname}"] = {
             "defines": list(defines), "old": csrc is not None,
             "team_envs_smem": shape, "ptxas": ptxas}
         print(f"build {k} {bname}: (team, envs per block, shared bytes per "
-              f"block) {shape or 'one thread per env'}")
+              f"block) {shape if shape['float32'] else 'one thread per env'}")
         for line in ptxas:
             print("  ptxas:", line)
-    cuda_step._lib = libs["K1", "default"]
-    cuda_block._lib = libs["K2", "default"]
+    for k, (mod, _) in kernels.items():
+        mod._lib = libs[k, "default"]
 
     # ---- inputs: the main paths' states, through the default builds
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     with torch.inference_mode():
-        env01, s01, _ = main_path_inputs(brt, "Env01-v2", chip_smoke.POLICY,
-                                         gen)
-        env03, s03, s03_first = main_path_inputs(
-            brt, "Env03-v2", chip_smoke.POLICY03, gen)
-        impact = [torch.tensor(x, dtype=torch.float32, device="cuda")
-                  for x in chip_smoke.random_states14(
-                      np.random.default_rng(5), chip_smoke.N_ENVS)]
-        impact.insert(2, torch.zeros_like(impact[1]))
-        cases = [
-            ("K1", 4096, "fast", s01, (None, env01.params)),
-            ("K1", 256, "fast", s01, (None, env01.params)),
-            ("K2", 4096, "fast", s03, (env03.params,)),
-            ("K2", 1024, "exact", s03, (bs.ENV03_PARAMS,)),
-            ("K2", 4096, "fast impact", impact, (env03.params,)),
-            ("K2", 4096, "fast first-step", s03_first, (env03.params,))]
+        cases = []
+        if "K1" in kernels:
+            env01, s01, _ = main_path_inputs(brt, "Env01-v2",
+                                             chip_smoke.POLICY, gen)
+            cases += [("K1", 4096, "fast", s01, (None, env01.params)),
+                      ("K1", 256, "fast", s01, (None, env01.params))]
+        if "K2" in kernels:
+            env03, s03, s03_first = main_path_inputs(
+                brt, "Env03-v2", chip_smoke.POLICY03, gen)
+            impact = [torch.tensor(x, dtype=torch.float32, device="cuda")
+                      for x in chip_smoke.random_states14(
+                          np.random.default_rng(5), chip_smoke.N_ENVS)]
+            impact.insert(2, torch.zeros_like(impact[1]))
+            cases += [
+                ("K2", 4096, "fast", s03, (env03.params,)),
+                ("K2", 1024, "exact", s03, (bs.ENV03_PARAMS,)),
+                ("K2", 4096, "fast impact", impact, (env03.params,)),
+                ("K2", 4096, "fast first-step", s03_first, (env03.params,))]
+        if "K3" in kernels:
+            env_move, smove, _ = main_path_inputs(
+                brt, "EnvMove05-v1", chip_smoke.POLICY_MOVE, gen)
+            at_wall = [torch.tensor(x, dtype=torch.float32, device="cuda")
+                       for x in chip_smoke.random_states_walls(
+                           np.random.default_rng(5), chip_smoke.N_ENVS)]
+            at_wall.insert(2, torch.zeros_like(at_wall[1]))
+            fast = (env_move.params,)
+            cases += [("K3", 4096, "fast", smove, fast),
+                      ("K3", 2048, "fast", smove, fast),
+                      ("K3", 1088, "fast", smove, fast),
+                      ("K3", 1056, "fast", smove, fast),
+                      ("K3", 1024, "fast", smove, fast),
+                      ("K3", 512, "fast", smove, fast),
+                      ("K3", 512, "exact", smove, (MOVE05_PARAMS,)),
+                      ("K3", 4096, "fast at-wall", at_wall, fast),
+                      ("K3", 512, "fast at-wall", at_wall, fast)]
         for k, B, grade, states, extra in cases:
-            mod = kernels[k][0]
-            fn = (cuda_step.control_step_cuda if k == "K1"
-                  else cuda_block.control_step14_cuda)
+            mod, fn = kernels[k]
             args = tuple(t[:B].contiguous() for t in states) + extra
             names = [b for (kk, b) in libs if kk == k]
             ref = with_lib(mod, libs[k, "default"], lambda: fn(*args))
@@ -210,8 +316,12 @@ def main():
                       f"{min(t):.3f}-{max(t):.3f} ({len(t)}); vs default f32 "
                       + ", ".join(f"{key} {v:.2e}"
                                   for key, v in drift[b].items()))
-        for k, env_id, path in (("K1", "Env01-v2", chip_smoke.POLICY),
-                                ("K2", "Env03-v2", chip_smoke.POLICY03)):
+        paths = (("K1", "Env01-v2", chip_smoke.POLICY),
+                 ("K2", "Env03-v2", chip_smoke.POLICY03),
+                 ("K3", "EnvMove05-v1", chip_smoke.POLICY_MOVE))
+        for k, env_id, path in paths:
+            if k not in kernels:
+                continue
             mod = kernels[k][0]
             names = [b for (kk, b) in libs if kk == k]
             secs = {b: [] for b in names}
@@ -234,6 +344,19 @@ def main():
                       "(median over readings): "
                       + " ".join(f"{x:.0f}"
                                  for x in np.median(steps[b], axis=0)))
+        if opts.serving and "K3" in kernels:
+            names = [b for b in ("default", "old") if ("K3", b) in libs]
+            for grade in ("fast", "exact"):
+                res = {b: [] for b in names}
+                for b in names + names[::-1]:
+                    res[b].append(with_lib(cuda_move, libs["K3", b],
+                                           lambda: serving_seconds(brt,
+                                                                   grade)))
+                report["cases"][f"serving EnvMove05-v1 {grade}"] = res
+                for b in names:
+                    print(f"serving EnvMove05-v1 {grade} {b}: "
+                          + ", ".join(f"{t:.2f} s (mean return {r:.2f})"
+                                      for t, r in res[b]))
     opts.out.parent.mkdir(parents=True, exist_ok=True)
     opts.out.write_text(json.dumps(report, indent=1))
     print(card)
