@@ -59,12 +59,13 @@
 //   one thread per env, its rows in the thread's own local array
 //   (LaneRows: J row-major, 13,056 bytes in float), which the hardware
 //   interleaves by thread so that a warp's accesses to one row coalesce;
-//   every shuffle and warp sync compiles out, and team_solve takes each
-//   row's Hessian, gradient and force in one pass from J in registers, as
-//   the one-thread design before did. A team there would run the serial
-//   parts (fk, CRB, RNE, colliders, the small factorizations) once per
-//   lane on a card that one thread per env already fills: one thread per
-//   env takes ~17.4 ms at any batch up to one warp per SM (4,224 envs).
+//   every shuffle and warp sync compiles out, and on that store team_solve
+//   takes each row's Hessian, gradient and force in one pass from J in
+//   registers, as the one-thread design before did. A team there would
+//   run the serial parts (fk, CRB, RNE, colliders, the small
+//   factorizations) once per lane on a card that one thread per env
+//   already fills: one thread per env takes ~17.4 ms at any batch up to
+//   one warp per SM (4,224 envs).
 // The crossover is where the 32-lane team stops fitting one wave: 255
 // registers a thread leave 8 one-warp blocks per SM, 1,056 envs on 132
 // SMs; a second wave doubles the team's time. Timed in turns on an H100
@@ -72,9 +73,10 @@
 // B = 512 / 1024 / 2048 / 4096, fast grade, on the EnvMove05-v1 main
 // path's states: 32 lanes 10.1 / 13.3 / 25.7 / 50.1; one lane 17.4 /
 // 17.6 / 17.6 / 17.5; 16 lanes 15.7 / 17.9 / 35.9 / 58.7; 8 lanes 27.6 /
-// 28.0 / 52.4 / 78.1; 32 lanes capped at 128 registers (16 blocks per SM)
-// 16.8 / 22.8 / 43.5 / 71.0 (more spills than warps won); the
-// one-thread-per-env design before 17.3 at every batch.
+// 28.0 / 52.4 / 78.1; 32 lanes capped at 128 registers (16 blocks per SM,
+// a __launch_bounds__ minimum of 16, since removed) 16.8 / 22.8 / 43.5 /
+// 71.0 (more spills than warps won); the one-thread-per-env design before
+// 17.3 at every batch.
 //
 // What bounds it on an H100: the latency of each env's serial chain of
 // scalar float math (no matrix product for the tensor cores); the
@@ -91,10 +93,13 @@
 // 6,716).
 //
 // The same templated code also runs on the host with `Counted` and a team
-// of one lane: k3_count_ops gives the operation count behind the kernel's
-// bound, and lets the kernel's arithmetic be compared with the plain
-// version without a GPU. chip_smoke.py prints ptxas's registers, stack and
-// spills of each build and each instantiation's launch shape.
+// of one lane: k3_count_ops (on LaneRows, the one-pass solver) gives the
+// operation count behind the kernel's bound, and with
+// k3_count_ops_team_rows (on TeamRows, the by-entry solver that the team's
+// lanes run; the same bits and count) lets both instantiations' arithmetic
+// be compared with the plain version without a GPU. chip_smoke.py prints
+// ptxas's registers, stack and spills of each build and each
+// instantiation's launch shape.
 
 #include <type_traits>
 
@@ -110,14 +115,10 @@ constexpr int MAX_WALLS = 4;
 constexpr int NFLOOR = 16;   // floor candidates: 2 x 4 wheel, 8 chassis
 constexpr int MAXCON = 12 + 14 * MAX_WALLS;
 constexpr int MAXROW = 4 * MAXCON;
-// The small-batch team, the blocks per SM that its registers are capped
-// for (__launch_bounds__), and the batch from which one lane per env runs
+// The small-batch team and the batch from which one lane per env runs
 // instead (see above); only tools/time_kernels.py overrides them.
 #ifndef BRT_K3_TEAM
 #define BRT_K3_TEAM 32
-#endif
-#ifndef BRT_K3_MINB
-#define BRT_K3_MINB 1
 #endif
 #ifndef BRT_K3_CROSSOVER
 #define BRT_K3_CROSSOVER 1057
@@ -275,12 +276,42 @@ constexpr int smem_bytes(int G) {
                 : THREADS / G * TeamRows<T, NV, MAXROW>::SIZE * (int)sizeof(T);
 }
 
+// One env's control step on the host, in double with every operation
+// counted, as a team of one lane on the row store Rw.
+template <class Rw>
+long long count_ops(const double* qpos, const double* qvel, const double* ws,
+                    const double* ctrl, double* qpos_out, double* qvel_out,
+                    double* ws_out, const ParamsWalls* p, int newton_iters,
+                    int ls_iters, int frame_skip) {
+  using T = Counted;
+  static T buf[Rw::SIZE];
+  const Team<1> tm{0, 1u};
+  const Rw rw{buf};
+  T q[9], v[8], w[8], c[2];
+  for (int k = 0; k < 9; ++k) q[k] = T(qpos[k]);
+  for (int k = 0; k < 8; ++k) {
+    v[k] = T(qvel[k]);
+    w[k] = T(ws[k]);
+  }
+  c[0] = T(ctrl[0]);
+  c[1] = T(ctrl[1]);
+  g_ops = 0;
+  control_step_one(tm, rw, q, v, w, c, *p, newton_iters, ls_iters,
+                   frame_skip);
+  for (int k = 0; k < 9; ++k) qpos_out[k] = q[k].v;
+  for (int k = 0; k < 8; ++k) {
+    qvel_out[k] = v[k].v;
+    ws_out[k] = w[k].v;
+  }
+  return g_ops;
+}
+
 #ifdef __CUDACC__
 // One warp per block, THREADS / G teams of G lanes, one env per team; a
 // team of several lanes keeps its rows in its slice of the block's dynamic
 // shared memory, a team of one in its own local array.
 template <typename T, int G>
-__global__ void __launch_bounds__(THREADS, G == 1 ? 1 : BRT_K3_MINB)
+__global__ void __launch_bounds__(THREADS, 1)
     control_step_walls_kernel(
         const T* __restrict__ qpos, const T* __restrict__ qvel,
         const T* __restrict__ ws, const T* __restrict__ ctrl,
@@ -391,34 +422,30 @@ void k3_launch_config(int f64, int B, int* team, int* envs, int* smem) {
 }
 
 // One env's control step on the host in double precision, as a team of one
-// lane, with every arithmetic operation counted. Writes the new state and
-// returns the count.
+// lane on the row store of the one-lane instantiation (LaneRows, the
+// one-pass solver), with every arithmetic operation counted. Writes the new
+// state and returns the count.
 long long k3_count_ops(const double* qpos, const double* qvel,
                        const double* ws, const double* ctrl,
                        double* qpos_out, double* qvel_out, double* ws_out,
                        const k3::ParamsWalls* p, int newton_iters,
                        int ls_iters, int frame_skip) {
-  using T = brt::Counted;
-  static T buf[k3::Rows<T, 1>::SIZE];
-  const brt::Team<1> tm{0, 1u};
-  const k3::Rows<T, 1> rw{buf};
-  T q[9], v[8], w[8], c[2];
-  for (int k = 0; k < 9; ++k) q[k] = T(qpos[k]);
-  for (int k = 0; k < 8; ++k) {
-    v[k] = T(qvel[k]);
-    w[k] = T(ws[k]);
-  }
-  c[0] = T(ctrl[0]);
-  c[1] = T(ctrl[1]);
-  brt::g_ops = 0;
-  k3::control_step_one(tm, rw, q, v, w, c, *p, newton_iters, ls_iters,
-                       frame_skip);
-  for (int k = 0; k < 9; ++k) qpos_out[k] = q[k].v;
-  for (int k = 0; k < 8; ++k) {
-    qvel_out[k] = v[k].v;
-    ws_out[k] = w[k].v;
-  }
-  return brt::g_ops;
+  return k3::count_ops<k3::Rows<brt::Counted, 1>>(
+      qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out, p, newton_iters,
+      ls_iters, frame_skip);
+}
+
+// The same on the row store of the team instantiation (TeamRows, the
+// by-entry solver that the team's lanes run), as a team of one lane.
+long long k3_count_ops_team_rows(const double* qpos, const double* qvel,
+                                 const double* ws, const double* ctrl,
+                                 double* qpos_out, double* qvel_out,
+                                 double* ws_out, const k3::ParamsWalls* p,
+                                 int newton_iters, int ls_iters,
+                                 int frame_skip) {
+  return k3::count_ops<k3::Rows<brt::Counted, k3::TEAM>>(
+      qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out, p, newton_iters,
+      ls_iters, frame_skip);
 }
 
 }  // extern "C"

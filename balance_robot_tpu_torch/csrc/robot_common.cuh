@@ -33,6 +33,21 @@
 #define BRT_HD inline
 #endif
 
+// A checked build (-DBRT_CHECK_ROWS; the tests build one) holds every index
+// into a row store to its range, and a team's lanes to the same bits of
+// the rows they count and the state they leave; a breach traps the kernel
+// (aborts on the host). Other builds compile the checks out.
+#ifdef BRT_CHECK_ROWS
+#ifdef __CUDA_ARCH__
+#define BRT_REQUIRE(cond) do { if (!(cond)) __trap(); } while (0)
+#else
+#include <cstdlib>
+#define BRT_REQUIRE(cond) do { if (!(cond)) std::abort(); } while (0)
+#endif
+#else
+#define BRT_REQUIRE(cond) do { } while (0)
+#endif
+
 namespace brt {
 
 constexpr int NV_ROBOT = 8;
@@ -629,6 +644,15 @@ struct Team {
     if constexpr (G > 1) __syncwarp(mask);
 #endif
   }
+  // Whether every lane of the team holds the same v (checked builds).
+  template <typename T>
+  BRT_HD bool agree(T v) const {
+#ifdef __CUDA_ARCH__
+    if constexpr (G > 1)
+      return __all_sync(mask, __shfl_sync(mask, v, 0, G) == v) != 0;
+#endif
+    return true;
+  }
   // The sum of v over the team's lanes before this one (in lane order),
   // and in `total` the sum over all of them, the same on every lane.
   BRT_HD int excl_scan(int v, int& total) const {
@@ -658,18 +682,29 @@ struct Team {
 // triangle and the gradient as the lanes that own them leave them.
 template <typename T, int NV, int MAXROW>
 struct TeamRows {
+  static constexpr bool ONE_PASS = false;   // see team_solve
   static constexpr int RS = MAXROW + 1;
   static constexpr int NE = NV * (NV + 1) / 2;
   static constexpr int JAR = NV + 2;
   static constexpr int SIZE = (NV + 5) * RS + NE + NV;   // values per env
   T* base;
-  BRT_HD T& J(int r, int j) const { return base[j * RS + r]; }
-  BRT_HD T& aref(int r) const { return base[NV * RS + r]; }
-  BRT_HD T& D(int r) const { return base[(NV + 1) * RS + r]; }
-  BRT_HD T& jar(int r) const { return base[JAR * RS + r]; }
-  BRT_HD T& Jd(int r) const { return base[(NV + 3) * RS + r]; }
-  BRT_HD T& w(int r) const { return base[(NV + 4) * RS + r]; }
-  BRT_HD T& H(int e) const { return base[(NV + 5) * RS + e]; }
+  BRT_HD static int row(int r) {
+    BRT_REQUIRE(r >= 0 && r < MAXROW);
+    return r;
+  }
+  BRT_HD T& J(int r, int j) const {
+    BRT_REQUIRE(j >= 0 && j < NV);
+    return base[j * RS + row(r)];
+  }
+  BRT_HD T& aref(int r) const { return base[NV * RS + row(r)]; }
+  BRT_HD T& D(int r) const { return base[(NV + 1) * RS + row(r)]; }
+  BRT_HD T& jar(int r) const { return base[JAR * RS + row(r)]; }
+  BRT_HD T& Jd(int r) const { return base[(NV + 3) * RS + row(r)]; }
+  BRT_HD T& w(int r) const { return base[(NV + 4) * RS + row(r)]; }
+  BRT_HD T& H(int e) const {
+    BRT_REQUIRE(e >= 0 && e < NE + NV);
+    return base[(NV + 5) * RS + e];
+  }
   // Entry e of the Hessian-and-gradient sum sum_row (w A[row]) B[row], as
   // the column offsets of A and B: H[r][c] for e < NE (lower triangle, row
   // by row), g[e - NE] after.
@@ -692,13 +727,21 @@ struct TeamRows {
 // row by row and keeps its Hessian in registers, so there is no w and no H.
 template <typename T, int NV, int MAXROW>
 struct LaneRows {
+  static constexpr bool ONE_PASS = true;    // see team_solve
   static constexpr int SIZE = (NV + 4) * MAXROW;   // values per env
   T* base;
-  BRT_HD T& J(int r, int j) const { return base[r * NV + j]; }
-  BRT_HD T& aref(int r) const { return base[NV * MAXROW + r]; }
-  BRT_HD T& D(int r) const { return base[(NV + 1) * MAXROW + r]; }
-  BRT_HD T& jar(int r) const { return base[(NV + 2) * MAXROW + r]; }
-  BRT_HD T& Jd(int r) const { return base[(NV + 3) * MAXROW + r]; }
+  BRT_HD static int row(int r) {
+    BRT_REQUIRE(r >= 0 && r < MAXROW);
+    return r;
+  }
+  BRT_HD T& J(int r, int j) const {
+    BRT_REQUIRE(j >= 0 && j < NV);
+    return base[row(r) * NV + j];
+  }
+  BRT_HD T& aref(int r) const { return base[NV * MAXROW + row(r)]; }
+  BRT_HD T& D(int r) const { return base[(NV + 1) * MAXROW + row(r)]; }
+  BRT_HD T& jar(int r) const { return base[(NV + 2) * MAXROW + row(r)]; }
+  BRT_HD T& Jd(int r) const { return base[(NV + 3) * MAXROW + row(r)]; }
 };
 
 // M x for the mass matrix of the team kernels: the robot's 8 x 8 block Mr
@@ -756,11 +799,13 @@ BRT_HD void factor_solve_split(const F& H, const T ng[NV], T step[NV]) {
 // of them is active, H is block-diagonal and is factorized as 8 x 8 and
 // 6 x 6, which gives the bits of the 14 x 14 factorization (its
 // off-block entries are exact zeros). Mr's wheel diagonal is overwritten.
-// A team of one lane (G = 1) takes each row's Hessian and gradient entries
-// and its constraint force in the same pass as its J a - aref, from J in
-// registers, and keeps H in registers: the same operations in the same
-// order, so the same bits, on a row store R with J, aref, D, jar and Jd
-// (LaneRows).
+// On a row store that asks for it (R::ONE_PASS: LaneRows, which has J,
+// aref, D, jar and Jd only and is held by a team of one lane), each row's
+// Hessian and gradient entries and its constraint force are taken in the
+// same pass as its J a - aref, from J in registers, and H stays in
+// registers: the same operations in the same order as the by-entry code,
+// so the same bits. On TeamRows every team, one lane included (the host
+// builds of K1, K2 and K3's team instantiation), runs the by-entry code.
 template <typename T, int NV, int MAXROW, class Tm,
           class R = TeamRows<T, NV, MAXROW>>
 BRT_HD void team_solve(const Tm& tm, const R& rw, int nrow, int couple_row,
@@ -769,11 +814,14 @@ BRT_HD void team_solve(const Tm& tm, const R& rw, int nrow, int couple_row,
                        const Params& p, int newton_iters, int ls_iters,
                        T* qvel, T* ws) {
   constexpr int G = Tm::G;
+  constexpr bool ONE_PASS = R::ONE_PASS;
+  static_assert(!ONE_PASS || G == 1, "a one-pass row store has one lane");
   constexpr int NE = NV * (NV + 1) / 2;
   constexpr int KPL = (NE + NV + G - 1) / G;   // entries per lane
   const T* base = rw.base;
+  BRT_REQUIRE(nrow >= 0 && nrow <= MAXROW && tm.agree(nrow));
   int oa[KPL], ob[KPL];
-  if constexpr (G > 1) {
+  if constexpr (!ONE_PASS) {
 #pragma unroll
     for (int k = 0; k < KPL; ++k) {
       const int e = tm.lane + k * G;
@@ -820,7 +868,7 @@ BRT_HD void team_solve(const Tm& tm, const R& rw, int nrow, int couple_row,
     mass_mul<T, NV>(Mr, mb, Ib, da, Mda);
     bool coupled = false;
     T acc[KPL];
-    if constexpr (G == 1) {
+    if constexpr (ONE_PASS) {
       // entry e of acc is entry e of the lower triangle of H, then of g
 #pragma unroll
       for (int k = 0; k < KPL; ++k) acc[k] = T(0.0);
@@ -880,10 +928,10 @@ BRT_HD void team_solve(const Tm& tm, const R& rw, int nrow, int couple_row,
       tm.sync();
     }
     // H = M + the lanes' sums, read from shared memory entry by entry as
-    // the factorization needs it (one lane: from its registers): only the
-    // factor lives in registers
+    // the factorization needs it (a one-pass store: from registers): only
+    // the factor lives in registers
     const auto Hsum = [&](int e) {
-      if constexpr (G == 1) return acc[e];
+      if constexpr (ONE_PASS) return acc[e];
       else return rw.H(e);
     };
     T ng[NV], step[NV];
@@ -943,7 +991,7 @@ BRT_HD void team_solve(const Tm& tm, const R& rw, int nrow, int couple_row,
   // ---- constraint forces (by entry, as the gradient) and implicitfast
   // integration
   T qfrc[NV];
-  if constexpr (G == 1) {
+  if constexpr (ONE_PASS) {
     T qcon[NV];
 #pragma unroll
     for (int j = 0; j < NV; ++j) qcon[j] = T(0.0);
@@ -992,6 +1040,7 @@ BRT_HD void team_solve(const Tm& tm, const R& rw, int nrow, int couple_row,
   for (int j = 0; j < NV; ++j) {
     qvel[j] = qvel[j] + h * dv[j];
     ws[j] = a[j];
+    BRT_REQUIRE(tm.agree(qvel[j]) && tm.agree(ws[j]));
   }
 }
 

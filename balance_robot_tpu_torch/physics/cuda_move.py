@@ -116,8 +116,10 @@ def _bind(path):
     lib.k3_launch_config.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 3
     lib.k3_launch_config.restype = None
     dptr = ctypes.POINTER(ctypes.c_double)
-    lib.k3_count_ops.argtypes = [dptr] * 7 + [P] + [i32] * 3
-    lib.k3_count_ops.restype = ctypes.c_longlong
+    for name in ("k3_count_ops", "k3_count_ops_team_rows"):
+        fn = getattr(lib, name)
+        fn.argtypes = [dptr] * 7 + [P] + [i32] * 3
+        fn.restype = ctypes.c_longlong
     return lib
 
 

@@ -41,7 +41,8 @@ KERNELS = (cuda_step, cuda_block, cuda_move)
 
 @pytest.fixture(scope="module")
 def host_libs(tmp_path_factory):
-    """The kernel sources compiled as plain C++ with g++ and bound."""
+    """The kernel sources compiled as plain C++ with g++ and bound, as
+    checked builds: a row index out of its range aborts."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ on this host to compile the kernel sources")
@@ -50,7 +51,7 @@ def host_libs(tmp_path_factory):
     for mod in KERNELS:
         so = out / f"{mod.LABEL}.so"
         subprocess.run([gxx, "-x", "c++", "-std=c++17", "-O2", "-shared",
-                        "-fPIC", "-o", str(so),
+                        "-fPIC", "-DBRT_CHECK_ROWS", "-o", str(so),
                         str(kernel_build.CSRC / mod.SOURCE)], check=True)
         libs[mod.LABEL] = mod._bind(so)
     return libs
@@ -113,6 +114,19 @@ def test_k2_host_build_matches_plain(host_libs, fast):
     assert (coupled > 0).any() and (coupled == 0).any(), coupled
 
 
+class TeamRowsLib:
+    """A K3 host library whose k3_count_ops runs on the row store of the
+    team instantiation (TeamRows, the by-entry solver) instead of the
+    one-lane one (LaneRows, the one-pass solver)."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        self.k3_count_ops = lib.k3_count_ops_team_rows
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+
 @pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
 def test_k3_host_build_matches_plain(host_libs, fast):
     params = fast_solver(MOVE05_PARAMS) if fast else MOVE05_PARAMS
@@ -121,23 +135,33 @@ def test_k3_host_build_matches_plain(host_libs, fast):
     qpos, qvel, ctrl = (torch.tensor(x)
                         for x in chip_smoke.random_states_walls(rng, B))
     ws = torch.zeros(B, 8, dtype=F64)
-    counts, *host = cuda_move.count_ops(qpos, qvel, ws, ctrl, params,
-                                        frame_skip=FRAME_SKIP,
-                                        lib=host_libs["k3"])
     seen = {}
     plain = cuda_move.control_step_walls_plain(qpos, qvel, ws, ctrl, params,
                                                frame_skip=FRAME_SKIP,
                                                contact_counts=seen)
-    assert_state_close(host, plain)
     # the comparison reached every wall collider: face, edge, wheel, a whole
     # face flush on the wall, two walls at once
     assert set(seen) == set(st.WALL_CONTACT_KINDS)
     assert all(int(v.sum()) > 0 for v in seen.values()), seen
-    # only included contacts are stored, so K3 does fewer operations on
-    # these states than K1 on its 64 masked rows (~60k fast / ~125k exact):
-    # on the team solver as a team of one lane ~12-35k fast / ~15-62k exact
-    per_substep = np.array(counts) / FRAME_SKIP
-    assert (per_substep > 1e4).all() and (per_substep < 1.25e5).all()
+    # both row stores and their solver code, as a team of one lane: the
+    # one-lane instantiation's (LaneRows, one pass per row) and the team
+    # instantiation's (TeamRows, by entry, as the team's lanes run it)
+    lib = host_libs["k3"]
+    runs = [cuda_move.count_ops(qpos, qvel, ws, ctrl, params,
+                                frame_skip=FRAME_SKIP, lib=lb)
+            for lb in (lib, TeamRowsLib(lib))]
+    for counts, *host in runs:
+        assert_state_close(host, plain)
+        # only included contacts are stored, so K3 does fewer operations on
+        # these states than K1 on its 64 masked rows (~60k fast / ~125k
+        # exact): on the team solver ~12-35k fast / ~15-62k exact
+        per_substep = np.array(counts) / FRAME_SKIP
+        assert (per_substep > 1e4).all() and (per_substep < 1.25e5).all()
+    # the one pass takes the same operations in the same order as the
+    # by-entry code: the same bits and the same count
+    (c_lane, *lane), (c_team, *team) = runs
+    assert c_lane == c_team
+    assert all(torch.equal(a, b) for a, b in zip(lane, team))
 
 
 def test_k3_wrapper_launches_the_instantiation_the_header_names(

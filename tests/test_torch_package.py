@@ -419,3 +419,44 @@ def test_k3_matches_plain_on_the_card():
         d = (a - b).abs().max(1).values.cpu()
         print(name, "f32 drift by kind",
               [float(d[kind == i].max()) for i in range(6)])
+
+
+@pytest.mark.cuda
+def test_k3_checked_build_on_the_card(monkeypatch):
+    """A checked build of K3 (-DBRT_CHECK_ROWS: every row-store index held
+    to its range, the team's lanes to the same row count and state; a
+    breach traps) runs a whole control step at the serving batch (the
+    32-lane team) and above the crossover (one lane per env), in float32
+    and float64, at both grades, with every wall contact kind active; two
+    launches on the same inputs give the same bits, and float64 agrees
+    with the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc to build K3)")
+    import chip_smoke
+    from balance_robot_tpu_torch.physics import kernel_build
+    from balance_robot_tpu_torch.physics import step as st
+    info = {}
+    monkeypatch.setattr(cuda_move, "_lib", cuda_move._bind(kernel_build.build(
+        "k3_checked", cuda_move.SOURCE, info,
+        defines=("-DBRT_CHECK_ROWS",))))
+    print(json.dumps(info["resources"]))
+    X = cuda_move.crossover()
+    for B in (512, X + 61):
+        qpos, qvel, ctrl = wall_states(B, seed=2)
+        for dtype in (torch.float32, torch.float64):
+            args = [t.to("cuda", dtype) for t in (
+                qpos, qvel, torch.zeros_like(qvel), ctrl)]
+            for params in (MOVE05_PARAMS, fast_solver(MOVE05_PARAMS)):
+                out = cuda_move.control_step_walls_cuda(*args, params)
+                again = cuda_move.control_step_walls_cuda(*args, params)
+                torch.cuda.synchronize()
+                assert all(torch.isfinite(t).all() for t in out)
+                assert all(torch.equal(a, b) for a, b in zip(out, again))
+                if dtype == torch.float64:
+                    seen = {}
+                    ref = cuda_move.control_step_walls_plain(
+                        *args, params, contact_counts=seen)
+                    d = chip_smoke.drift(out, ref)
+                    assert chip_smoke.within(d, chip_smoke.F64_TOL), (B, d)
+                    assert set(seen) == set(st.WALL_CONTACT_KINDS)
+                    assert all(int(v.sum()) > 0 for v in seen.values())

@@ -1,17 +1,15 @@
 """Time the port's K1, K2 and K3 kernels against other builds of them, in
 turns, in one process on one GPU.
 
-    python tools/time_kernels.py [--kernels K1,K2,K3]
-                                 [--variant K2:BRT_K2_TEAM=8 ...]
-                                 [--old-csrc DIR] [--rounds 2] [--serving]
-                                 [--out FILE]
+    python tools/time_kernels.py [--variant K2:BRT_K2_TEAM=8 ...]
+                                 [--old-csrc DIR] [--rounds 2] [--out FILE]
 
 Builds K1 (`csrc/control_step.cu`), K2 (`csrc/control_step14.cu`) and K3
-(`csrc/control_step_walls.cu`), or those of --kernels, as they are, once
+(`csrc/control_step_walls.cu`) as they are, once
 more for each --variant KERNEL:NAME=VALUE[:NAME=VALUE...] with those macros
 defined (`BRT_K1_TEAM` / `BRT_K2_TEAM` / `BRT_K3_TEAM`: lanes per env, for
-K3 below its crossover; `BRT_K*_MINB`: the blocks per SM that
-`__launch_bounds__` asks registers for; `BRT_K3_CROSSOVER`: the batch from
+K3 below its crossover; `BRT_K1_MINB` / `BRT_K2_MINB`: the blocks per SM
+that `__launch_bounds__` asks registers for; `BRT_K3_CROSSOVER`: the batch from
 which K3 runs one lane per env, 0 for always, a large one for never), and,
 with --old-csrc, from another checkout's `csrc/` directory (an earlier
 design with the same C interface, or for K3 the one of its one-thread
@@ -22,22 +20,27 @@ run through the default build. Cases: K1 at B = 4096 and 256 (Env01
 serving's batch), fast grade; K2 at B = 4096, fast grade, and at B = 1024,
 exact grade (the flagship serving's batch and grade); K3 at B = 4096, 2048,
 1088, 1056 (one wave of its 32-lane team), 1024 and 512 (EnvMove05-v1
-serving's batch), fast grade, and at 512, exact grade; the first B envs of the main path's states, float32; K2 at B = 4096,
-fast grade, on chip_smoke.random_states14's impact states, where a third of
-the envs have the block against the robot (the 14 x 14 factorization of a
-coupled Hessian), and on the Env03-v2 main path's states after its first
-step (fresh episodes, the block in flight); K3 at B = 4096 and 512, fast
-grade, on chip_smoke.random_states_walls's states, every env at a wall.
-Then the main paths themselves (chip_smoke.py phase 4: 4096 envs, 25
-sampled steps from fresh episodes) with each build of their kernel, in
-turns, by the host clock around a synchronize; with --serving also
+serving's batch), fast grade, and at 512, exact grade; the first B envs
+of the main path's states, float32; K2 at B = 4096, fast grade, on
+chip_smoke.random_states14's impact states, where a third of the envs have
+the block against the robot (the 14 x 14 factorization of a coupled
+Hessian), and on the Env03-v2 main path's states after its first step
+(fresh episodes, the block in flight); K3 at B = 4096 and 512, fast grade,
+on chip_smoke.random_states_walls's states, every env at a wall; K3, fast
+grade, on the float32 at-the-wall states of chip_smoke.py phase 3c
+(chip_smoke.check_states: B = 257 and a ragged batch above the crossover),
+where each build is also held to the plain version in float32 and in
+float64, per kind of wall state (where K3 drifts in float32, and where the
+plain float32 version does). Then the main paths themselves (chip_smoke.py
+phase 4: 4096 envs, 25 sampled steps from fresh episodes) with each build
+of their kernel, in turns, by the host clock around a synchronize; and
 EnvMove05-v1 serving (chip_smoke.py phase 5c: 2 x 256 episodes of 700
 steps in one batch, fast and exact grade) with the default and the old
-build of K3, in turns once. In each kernel case the builds are timed in turns (a, b, ..., b, a),
---rounds times, each time the median of chip_smoke.TIMED_LAUNCHES launches
-by CUDA events, and each build's outputs are compared with the default
-build's. Prints one line per build and case and writes everything as JSON
-to --out.
+build of K3, in turns once. In each kernel case the builds are timed in
+turns (a, b, ..., b, a), --rounds times, each time the median of
+chip_smoke.TIMED_LAUNCHES launches by CUDA events, and each build's
+outputs are compared with the default build's. Prints one line per build
+and case and writes everything as JSON to --out.
 """
 import argparse
 import ctypes
@@ -161,6 +164,18 @@ class OldK3:
         return self.lib.k3_control_step_f64(*args[:-2], args[-1])
 
 
+def by_kind(kernel, ref):
+    """{quantity: [largest drift of the envs of wall kind 0..5, of all]}
+    (chip_smoke.random_states_walls deals the kinds in turn)."""
+    kind = torch.arange(kernel[0].shape[0], device=kernel[0].device) % 6
+    res = {}
+    for name, a, b in zip(("qpos", "qvel", "ws"), kernel, ref):
+        d = (a.double() - b.double()).abs().max(1).values
+        res[name] = [float(d[kind == k].max()) for k in range(6)] \
+            + [float(d.max())]
+    return res
+
+
 def launch_shapes(mod, lib, dtype):
     """{batches: (lanes per env, envs per block, shared bytes per block)}
     of a build, or {} for a build without a launch-config entry."""
@@ -187,16 +202,12 @@ def with_lib(mod, lib, fn):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernels", default="K1,K2,K3",
-                    help="which kernels to build and time, e.g. K3")
     ap.add_argument("--variant", action="append", default=[],
                     help="KERNEL:NAME=VALUE[:NAME=VALUE...], e.g. "
                          "K2:BRT_K2_TEAM=8:BRT_K2_MINB=4")
     ap.add_argument("--old-csrc", type=pathlib.Path,
                     help="csrc/ of an earlier design to time in turns")
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--serving", action="store_true",
-                    help="also time EnvMove05-v1 serving with each K3 build")
     ap.add_argument("--out", type=pathlib.Path,
                     default=pathlib.Path("build/time_kernels.json"))
     opts = ap.parse_args()
@@ -214,7 +225,6 @@ def main():
     kernels = {"K1": (cuda_step, cuda_step.control_step_cuda),
                "K2": (cuda_block, cuda_block.control_step14_cuda),
                "K3": (cuda_move, cuda_move.control_step_walls_cuda)}
-    kernels = {k: kernels[k] for k in opts.kernels.split(",")}
     specs = []       # (kernel, build name, csrc, defines)
     for name in kernels:
         specs.append((name, "default", None, ()))
@@ -258,51 +268,63 @@ def main():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     with torch.inference_mode():
-        cases = []
-        if "K1" in kernels:
-            env01, s01, _ = main_path_inputs(brt, "Env01-v2",
-                                             chip_smoke.POLICY, gen)
-            cases += [("K1", 4096, "fast", s01, (None, env01.params)),
-                      ("K1", 256, "fast", s01, (None, env01.params))]
-        if "K2" in kernels:
-            env03, s03, s03_first = main_path_inputs(
-                brt, "Env03-v2", chip_smoke.POLICY03, gen)
-            impact = [torch.tensor(x, dtype=torch.float32, device="cuda")
-                      for x in chip_smoke.random_states14(
-                          np.random.default_rng(5), chip_smoke.N_ENVS)]
-            impact.insert(2, torch.zeros_like(impact[1]))
-            cases += [
-                ("K2", 4096, "fast", s03, (env03.params,)),
-                ("K2", 1024, "exact", s03, (bs.ENV03_PARAMS,)),
-                ("K2", 4096, "fast impact", impact, (env03.params,)),
-                ("K2", 4096, "fast first-step", s03_first, (env03.params,))]
-        if "K3" in kernels:
-            env_move, smove, _ = main_path_inputs(
-                brt, "EnvMove05-v1", chip_smoke.POLICY_MOVE, gen)
-            at_wall = [torch.tensor(x, dtype=torch.float32, device="cuda")
-                       for x in chip_smoke.random_states_walls(
-                           np.random.default_rng(5), chip_smoke.N_ENVS)]
-            at_wall.insert(2, torch.zeros_like(at_wall[1]))
-            fast = (env_move.params,)
-            cases += [("K3", 4096, "fast", smove, fast),
-                      ("K3", 2048, "fast", smove, fast),
-                      ("K3", 1088, "fast", smove, fast),
-                      ("K3", 1056, "fast", smove, fast),
-                      ("K3", 1024, "fast", smove, fast),
-                      ("K3", 512, "fast", smove, fast),
-                      ("K3", 512, "exact", smove, (MOVE05_PARAMS,)),
-                      ("K3", 4096, "fast at-wall", at_wall, fast),
-                      ("K3", 512, "fast at-wall", at_wall, fast)]
+        env01, s01, _ = main_path_inputs(brt, "Env01-v2", chip_smoke.POLICY,
+                                         gen)
+        env03, s03, s03_first = main_path_inputs(
+            brt, "Env03-v2", chip_smoke.POLICY03, gen)
+        env_move, smove, _ = main_path_inputs(
+            brt, "EnvMove05-v1", chip_smoke.POLICY_MOVE, gen)
+
+        def on_card(arrays):
+            """float32 CUDA tensors (qpos, qvel, zero warm start, ctrl)."""
+            t = [torch.tensor(x, dtype=torch.float32, device="cuda")
+                 for x in arrays]
+            return [t[0], t[1], torch.zeros_like(t[1]), t[2]]
+
+        impact = on_card(chip_smoke.random_states14(
+            np.random.default_rng(5), chip_smoke.N_ENVS))
+        at_wall = on_card(chip_smoke.random_states_walls(
+            np.random.default_rng(5), chip_smoke.N_ENVS))
+        fast = (env_move.params,)
+        cases = [("K1", 4096, "fast", s01, (None, env01.params)),
+                 ("K1", 256, "fast", s01, (None, env01.params)),
+                 ("K2", 4096, "fast", s03, (env03.params,)),
+                 ("K2", 1024, "exact", s03, (bs.ENV03_PARAMS,)),
+                 ("K2", 4096, "fast impact", impact, (env03.params,)),
+                 ("K2", 4096, "fast first-step", s03_first, (env03.params,)),
+                 ("K3", 4096, "fast", smove, fast),
+                 ("K3", 2048, "fast", smove, fast),
+                 ("K3", 1088, "fast", smove, fast),
+                 ("K3", 1056, "fast", smove, fast),
+                 ("K3", 1024, "fast", smove, fast),
+                 ("K3", 512, "fast", smove, fast),
+                 ("K3", 512, "exact", smove, (MOVE05_PARAMS,)),
+                 ("K3", 4096, "fast at-wall", at_wall, fast),
+                 ("K3", 512, "fast at-wall", at_wall, fast)]
+        # phase 3c's float32 K3 checks, held per kind to both plain versions
+        check3 = chip_smoke.check_states(cuda_move.crossover())["K3"]
+        cases += [("K3", B, "fast phase-3c", on_card(draws[2]), fast)
+                  for B, draws in check3.items()]
         for k, B, grade, states, extra in cases:
             mod, fn = kernels[k]
             args = tuple(t[:B].contiguous() for t in states) + extra
             names = [b for (kk, b) in libs if kk == k]
             ref = with_lib(mod, libs[k, "default"], lambda: fn(*args))
             times = {b: [] for b in names}
-            drift = {}
+            drift, kinds = {}, {}
+            if grade.endswith("phase-3c"):
+                plain = {dt: cuda_move.control_step_walls_plain(
+                    *(t.to(dt) for t in args[:4]), *extra)
+                    for dt in (torch.float32, torch.float64)}
+                kinds["plain f32 vs plain f64"] = by_kind(
+                    plain[torch.float32], plain[torch.float64])
             for b in names:
                 out = with_lib(mod, libs[k, b], lambda: fn(*args))
                 drift[b] = chip_smoke.drift(out, ref)
+                if kinds:
+                    for dt in (torch.float32, torch.float64):
+                        kinds[f"{b} vs plain {str(dt)[6:]}"] = by_kind(
+                            out, plain[dt])
             for _ in range(opts.rounds):
                 for b in names + names[::-1]:
                     times[b].append(chip_smoke.time_kernel(
@@ -316,12 +338,17 @@ def main():
                       f"{min(t):.3f}-{max(t):.3f} ({len(t)}); vs default f32 "
                       + ", ".join(f"{key} {v:.2e}"
                                   for key, v in drift[b].items()))
+            if kinds:
+                report["cases"][case]["by kind"] = kinds
+                for key, res in kinds.items():
+                    print(f"{case} {key}: " + "; ".join(
+                        f"{q} by kind "
+                        + " ".join(f"{v:.2e}" for v in vals[:6])
+                        + f", all {vals[6]:.3e}" for q, vals in res.items()))
         paths = (("K1", "Env01-v2", chip_smoke.POLICY),
                  ("K2", "Env03-v2", chip_smoke.POLICY03),
                  ("K3", "EnvMove05-v1", chip_smoke.POLICY_MOVE))
         for k, env_id, path in paths:
-            if k not in kernels:
-                continue
             mod = kernels[k][0]
             names = [b for (kk, b) in libs if kk == k]
             secs = {b: [] for b in names}
@@ -344,19 +371,17 @@ def main():
                       "(median over readings): "
                       + " ".join(f"{x:.0f}"
                                  for x in np.median(steps[b], axis=0)))
-        if opts.serving and "K3" in kernels:
-            names = [b for b in ("default", "old") if ("K3", b) in libs]
-            for grade in ("fast", "exact"):
-                res = {b: [] for b in names}
-                for b in names + names[::-1]:
-                    res[b].append(with_lib(cuda_move, libs["K3", b],
-                                           lambda: serving_seconds(brt,
-                                                                   grade)))
-                report["cases"][f"serving EnvMove05-v1 {grade}"] = res
-                for b in names:
-                    print(f"serving EnvMove05-v1 {grade} {b}: "
-                          + ", ".join(f"{t:.2f} s (mean return {r:.2f})"
-                                      for t, r in res[b]))
+        names = [b for b in ("default", "old") if ("K3", b) in libs]
+        for grade in ("fast", "exact"):
+            res = {b: [] for b in names}
+            for b in names + names[::-1]:
+                res[b].append(with_lib(cuda_move, libs["K3", b],
+                                       lambda: serving_seconds(brt, grade)))
+            report["cases"][f"serving EnvMove05-v1 {grade}"] = res
+            for b in names:
+                print(f"serving EnvMove05-v1 {grade} {b}: "
+                      + ", ".join(f"{t:.2f} s (mean return {r:.2f})"
+                                  for t, r in res[b]))
     opts.out.parent.mkdir(parents=True, exist_ok=True)
     opts.out.write_text(json.dumps(report, indent=1))
     print(card)
