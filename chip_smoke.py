@@ -27,7 +27,7 @@ Phases, in order; any failure exits non-zero before the final line:
      Env03-v1-fail steps; 2 x 256 fresh EnvMove05-v1 episodes over the full
      700-step horizon at the fast and at the exact grade, held to the JAX
      package's float32 return (see RETURN_MOVE_JAX), a few Cal01 steps, and
-     the int8 inner policy on the card against the CPU;
+     the int8 inner policy on the card against exact integer arithmetic;
   6. times: K1, K2 and K3 and their plain versions at B = 4096 on the main
      paths' states, against each kernel's bound; K3 with every env at a wall
      at B = 4096 and 512; K1 at B = 256 (Env01 serving's batch), K2 at
@@ -357,6 +357,30 @@ def check_states(crossover):
         "K2": [random_states14(rng, CHECK_B) for _ in range(3)],
         "K3": {B: [random_states_walls(rng, B) for _ in range(3)]
                for B in (CHECK_B, crossover + 61)}}
+
+
+def int8_exact(qm, obs):
+    """The int8 policy `qm` (ops/quant.py's QuantizedMLP) on float32 obs
+    (N, 6) in numpy: int64 accumulators, the float32 scalings, roundings
+    (half to even) and clips of ops/quant.py, numpy's float32 tanh.
+    Returns the dequantized actions (N, 2), float32."""
+    f32 = np.float32
+    scales_in = (qm.in_q.scale, qm.act_q[0].scale, qm.act_q[1].scale)
+    eff = [f32(scales_in[i] * qm.w_scale[i]) for i in range(3)]
+    eff[2] = f32(scales_in[2] * qm.w_scale[2] / qm.out_q.scale)
+    x = np.clip(np.round(obs.astype(f32) / f32(qm.in_q.scale))
+                + qm.in_q.zero_point, -128, 127).astype(np.int64)
+    zp = (qm.in_q.zero_point, 0, 0)
+    for i in range(3):
+        acc = ((x - zp[i]) @ qm.w[i].astype(np.int64)
+               + qm.b[i].astype(np.int64)).astype(f32)
+        if i < 2:
+            x = np.clip(np.round(np.tanh(acc * eff[i]) * f32(128.0)),
+                        -128, 127).astype(np.int64)
+        else:
+            x = np.clip(np.round(acc * eff[i]) + qm.out_q.zero_point,
+                        -128, 127)
+    return f32(qm.out_q.scale) * (x.astype(f32) - f32(qm.out_q.zero_point))
 
 
 def drift(kernel_out, plain_out):
@@ -729,7 +753,7 @@ def main():
         few_steps("Env03-v1-fail", policy03, 9)
 
         # ---- 5c. serving, EnvMove05-v1 at both solver grades; then Cal01
-        # and the int8 inner policy card vs CPU
+        # and the int8 inner policy on the card
         n_move = SERVE_MOVE_DRAWS * SERVE_MOVE_EPISODES
         for grade in ("fast", "exact"):
             move_env = brt.make("EnvMove05-v1", seed=SERVE_MOVE_SEED)
@@ -787,54 +811,54 @@ def main():
               f"vel_l {vel_l[0].item():.3f}, vel_r {vel_r[0].item():.3f}")
 
         # the int8 policy's integer products, scalings and roundings are
-        # exact on both devices; only tanh comes from each device's own
-        # library and may differ in its last bits, which moves an int8
-        # output by one step where tanh * 128 sits on a rounding boundary.
-        # So the deciding check is that with the CPU's tanh the card agrees
-        # on every output. With each device's own tanh no output may differ
-        # by more than 1 LSB, and the share that differs is held to what two
-        # correct tanh's can cause: they differ by at most 2^-22 (4 ulp at
-        # 1), so tanh x 128 rounds to the other side of a boundary with
-        # probability 2 x 128 x 2^-22 per activation, and 128 hidden
-        # activations stand behind each output: 0.78% (0 and 13 of 8192
-        # outputs measured on two hosts with an H100 80GB HBM3, CUDA 12.8:
-        # the CPU's tanh differs between hosts)
+        # exact; only tanh comes from each device's own library and may
+        # differ in its last bits, which moves an int8 output by one step
+        # where tanh * 128 sits on a rounding boundary. So the deciding
+        # check is that with numpy's tanh the card agrees on every output
+        # with int8_exact, the same arithmetic in numpy with int64
+        # accumulators (independent of torch's CPU threads and BLAS: once,
+        # on one host, torch's CPU path departed from it on 7 outputs of
+        # the last 512 obs where the card did not; PERF.md). With the
+        # card's own tanh no output may differ by more than 1 LSB, and the
+        # share that differs is held to what two correct tanh's can cause:
+        # they differ by at most 2^-22 (4 ulp at 1), so tanh x 128 rounds to
+        # the other side of a boundary with probability 2 x 128 x 2^-22 per
+        # activation, and 128 hidden activations stand behind each output:
+        # 0.78% (0 and 13 of 8192 outputs measured against the CPU's tanh
+        # on two hosts with an H100 80GB HBM3, CUDA 12.8). torch's CPU path
+        # is printed beside them; the tests hold it to the JAX package.
         from unittest import mock
-        inner_obs = torch.tensor(np.random.default_rng(11).uniform(
-            -3, 3, (N_ENVS, 6)).astype(np.float32))
-        on_cpu = quant.int8_policy_fn(env_move.inner, "cpu")(inner_obs)
+        inner_obs = np.random.default_rng(11).uniform(
+            -3, 3, (N_ENVS, 6)).astype(np.float32)
+        exact = torch.from_numpy(int8_exact(env_move.inner, inner_obs))
         card_fn = quant.int8_policy_fn(env_move.inner, "cuda")
-        on_card = card_fn(inner_obs.cuda()).cpu()
-        cpu_tanh = torch.tanh
-        with mock.patch.object(torch, "tanh",
-                               lambda x: cpu_tanh(x.cpu()).to(x.device)):
-            shared_tanh = card_fn(inner_obs.cuda()).cpu()
-        if not torch.equal(shared_tanh, on_cpu):
-            # which obs, and whether the card repeats itself on them
-            with mock.patch.object(torch, "tanh",
-                                   lambda x: cpu_tanh(x.cpu()).to(x.device)):
-                again = card_fn(inner_obs.cuda()).cpu()
-            bad = (shared_tanh != on_cpu).any(1).nonzero().flatten()
+        on_card = card_fn(torch.from_numpy(inner_obs).cuda()).cpu()
+        with mock.patch.object(torch, "tanh", lambda x: torch.from_numpy(
+                np.tanh(x.cpu().numpy())).to(x.device)):
+            shared_tanh = card_fn(torch.from_numpy(inner_obs).cuda()).cpu()
+        if not torch.equal(shared_tanh, exact):
+            bad = (shared_tanh != exact).any(1).nonzero().flatten()
             for i in bad[:8].tolist():
-                print(f"int8 obs {i} {inner_obs[i].tolist()}: CPU "
-                      f"{on_cpu[i].tolist()}, card {shared_tanh[i].tolist()}, "
-                      f"card again {again[i].tolist()}")
-            repeats = torch.equal(again, shared_tanh)
-            fail("the int8 policy's integer arithmetic differs between the "
-                 f"card and the CPU: {int((shared_tanh != on_cpu).sum())} of "
-                 f"{on_cpu.numel()} outputs on {bad.numel()} obs, by up to "
-                 f"{(shared_tanh - on_cpu).abs().max().item():.3e}; a second "
-                 f"card run {'repeats' if repeats else 'differs from'} the "
-                 "first")
-        lsb = (on_card - on_cpu).abs() / float(env_move.inner.out_q.scale)
+                print(f"int8 obs {i} {inner_obs[i].tolist()}: exact "
+                      f"{exact[i].tolist()}, card {shared_tanh[i].tolist()}")
+            fail("the int8 policy's integer arithmetic on the card departs "
+                 f"from int8_exact: {int((shared_tanh != exact).sum())} of "
+                 f"{exact.numel()} outputs on {bad.numel()} obs, by up to "
+                 f"{(shared_tanh - exact).abs().max().item():.3e}")
+        on_cpu = quant.int8_policy_fn(env_move.inner, "cpu")(
+            torch.from_numpy(inner_obs))
+        scale = float(env_move.inner.out_q.scale)
+        lsb = (on_card - exact).abs() / scale
         n_diff = int((lsb > 0.5).sum())
-        print(f"int8 inner policy, card vs CPU on {N_ENVS} obs: equal on all "
-              f"{lsb.numel()} int8 outputs with one tanh; with each device's "
-              f"own tanh {n_diff} differ, by at most {lsb.max().item():.2f} "
-              "LSB")
+        n_cpu = int(((on_cpu - exact).abs() / scale > 0.5).sum())
+        print(f"int8 inner policy, card vs exact integer arithmetic on "
+              f"{N_ENVS} obs: equal on all {lsb.numel()} int8 outputs with "
+              f"one tanh; with the card's own tanh {n_diff} differ, by at "
+              f"most {lsb.max().item():.2f} LSB; torch's CPU path differs "
+              f"from it on {n_cpu}")
         check(lsb.max().item() <= 1.001
               and n_diff <= INT8_TANH_SHARE * lsb.numel(),
-              "the int8 policy disagrees between the card and the CPU")
+              "the int8 policy disagrees between the card and int8_exact")
 
         # ---- 6. times at B = 4096, the main paths' inputs
         sample = torch.linspace(0, N_ENVS - 1, 16).long()
