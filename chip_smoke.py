@@ -32,14 +32,28 @@ Phases, in order; any failure exits non-zero before the final line:
      paths' states, against each kernel's bound; K3 with every env at a wall
      at B = 4096 and 512; K1 at B = 256 (Env01 serving's batch), K2 at
      B = 1024 at the exact grade (the flagship serving's batch and grade)
-     and K3 at B = 512 at both grades (EnvMove05-v1 serving's batch).
+     and K3 at B = 512 at both grades (EnvMove05-v1 serving's batch);
+  7. training (outside inference mode), PPO at the CLI's training defaults
+     (1024 envs x 32 rollout steps, minibatch 1024, 10 epochs, the 64-64
+     actor-critic) and gamma 0.999, fast solver: (a) Env01-v2 from a fresh
+     init, 3 iterations, which must launch K1 once per rollout step and no
+     other kernel; (b) the curriculum's second stage, Env03-v2 with the
+     privileged critic warm-started from models/Env01-v2_PPO, 2 iterations,
+     K2 only, the padded critic's value equal to the unpadded one's before
+     the first update and the privileged rows nonzero after it; (c) the
+     runner (`train.runner.train`) on Env01-v2 for 2 iterations with an
+     eval of 5 episodes after each, its artifacts, and the resume state
+     read back bit for bit. Each prints its ms per iteration, rollout and
+     update (CUDA events) and its training env-steps/s.
 It ends with one JSON line per the contract: {"ok": true, "device": ...}.
 """
 
 import argparse
 import json
+import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -83,6 +97,13 @@ RETURN_MOVE_JAX = (845.35, 24.46)
 RETURN_MOVE_REGISTERED = 900.0
 # share of int8 outputs that may differ by 1 LSB between two correct tanh's
 INT8_TANH_SHARE = 128 * 2 * 128 * 2.0 ** -22
+# phase 7: PPO at the CLI's training defaults (balance_robot_tpu/cli.py,
+# `train`) with the quickstart's gamma (README)
+TRAIN_CONFIG = dict(n_envs=1024, n_steps=32, minibatch_size=1024,
+                    n_epochs=10, gamma=0.999)
+TRAIN_ITERS_01 = 3
+TRAIN_ITERS_03 = 2
+TRAIN_ITERS_RUNNER = 2
 POLICY = "models/Env01-v2_PPO/best_model.npz"
 POLICY03 = "models/Env03-v2_r2i/best_model.npz"
 POLICY_MOVE = "models/EnvMove05-v1_PPO_r4/best_model.npz"
@@ -500,6 +521,155 @@ def run_main_path(vec, policy, gen, modules, kernel, after_step=None):
           f"({kernel} launches {counts[kernel]}, mean reward "
           f"{rewards.mean().item():.4f})")
     return states, obs, counts
+
+
+def run_training(name, env, cfg, iters, modules, kernel, init_params=None,
+                 before=None, after_first=None):
+    """`iters` PPO iterations on `env` with every kernel's count set to 0
+    just before and read just after: only `kernel` may have been launched,
+    once per rollout step. `before(ppo, ts)` checks the fresh train state,
+    `after_first(ppo, ts)` the state after the first iteration. Prints the
+    times (the first iteration apart: it includes the first use of autograd
+    and of the optimizer)."""
+    from balance_robot_tpu_torch.train.ppo import PPO
+    from balance_robot_tpu_torch.utils.profiling import Timer
+    ppo = PPO(env, cfg)
+    ts = ppo.init(0, params=init_params)
+    if before is not None:
+        before(ppo, ts)
+    pi_w1 = ts.net.pi_l1.weight.detach().clone()
+    first, timer = Timer(), Timer()
+    torch.cuda.synchronize()
+    for m in modules.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    for i in range(iters):
+        t = first if i == 0 else timer
+        with t("iteration"):
+            ts, metrics = ppo.iteration(ts, timer=t)
+        if i == 0 and after_first is not None:
+            after_first(ppo, ts)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {n: m.launches for n, m in modules.items()}
+    check(counts == {n: iters * cfg.n_steps * (n == kernel)
+                     for n in modules},
+          f"{name} training must launch {kernel} {iters * cfg.n_steps} times "
+          f"and no other kernel: {counts}")
+    values = {k: float(v) for k, v in metrics.items()}
+    check(all(np.isfinite(values[k]) for k in (
+        "loss", "pg_loss", "v_loss", "entropy", "explained_variance")),
+        f"{name} training metrics not finite: {values}")
+    check(not torch.equal(ts.net.pi_l1.weight, pi_w1),
+          f"{name} training did not move pi_w1")
+    n = cfg.n_envs * cfg.n_steps
+    rep, rep1 = timer.report(), first.report()
+    print(f"training {name}: {iters} iterations of {cfg.n_envs} envs x "
+          f"{cfg.n_steps} steps, {cfg.n_epochs} epochs x "
+          f"{n // cfg.minibatch_size} minibatches of {cfg.minibatch_size}, "
+          f"in {seconds:.3f} s ({kernel} launches {counts[kernel]}); after "
+          f"the first: {rep['iteration']['mean_ms']:.1f} ms per iteration = "
+          f"rollout {rep['rollout']['mean_ms']:.1f} ms + update "
+          f"{rep['update']['mean_ms']:.1f} ms, "
+          f"{n / rep['iteration']['mean_ms'] * 1e3:.1f} training "
+          f"env-steps/s; the first {rep1['iteration']['mean_ms']:.1f} ms "
+          f"(rollout {rep1['rollout']['mean_ms']:.1f}, update "
+          f"{rep1['update']['mean_ms']:.1f}); last metrics "
+          + ", ".join(f"{k} {v:.4g}" for k, v in values.items()))
+
+
+def train_with_runner(env, cfg):
+    """Phase 7c: `runner.train` for TRAIN_ITERS_RUNNER iterations, an eval
+    after each, into a temporary models/logs directory under build/."""
+    from balance_robot_tpu_torch.models import mlp
+    from balance_robot_tpu_torch.train import checkpoint, runner
+    from balance_robot_tpu_torch.train.ppo import PPO
+
+    class TimedPPO(PPO):
+        def evaluate(self, net, n_episodes, max_steps=None):
+            t0 = time.perf_counter()
+            out = super().evaluate(net, n_episodes, max_steps)
+            self.eval_seconds.append(time.perf_counter() - t0)
+            return out
+
+    per_iter = cfg.n_envs * cfg.n_steps
+    build = pathlib.Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        tmp = pathlib.Path(tmp)
+        trainer = TimedPPO(env, cfg)
+        trainer.eval_seconds = []
+        t0 = time.perf_counter()
+        _, history = runner.train(
+            env, cfg, seed=0, total_timesteps=TRAIN_ITERS_RUNNER * per_iter,
+            eval_freq=per_iter, n_eval_episodes=5, models_dir=tmp / "models",
+            logs_dir=tmp / "logs", run_name="smoke", verbose=False,
+            trainer=trainer)
+        seconds = time.perf_counter() - t0
+        run = tmp / "models" / "smoke"
+        files = {f: (run / f).exists() for f in (
+            "best_model.npz", "longest_model.npz", "final_model.npz",
+            "resume_state.npz")}
+        files["smoke.csv"] = (tmp / "logs" / "smoke.csv").exists()
+        check(all(files.values()), f"runner artifacts missing: {files}")
+        check(len(history) == TRAIN_ITERS_RUNNER,
+              f"runner evaluated {len(history)} times")
+        final = checkpoint.load(run / "final_model")
+        ts, steps = checkpoint.load_train_state(
+            run / "resume_state.npz", PPO(env, cfg).init(1))
+        back = mlp.to_numpy_params(ts.net)
+        check(steps == TRAIN_ITERS_RUNNER * per_iter
+              and all(np.array_equal(back[k], final[k]) for k in final),
+              "the resume state does not give back the final params")
+    print(f"training runner: Env01-v2, {TRAIN_ITERS_RUNNER} iterations with "
+          f"an eval of 5 episodes after each, in {seconds:.2f} s; evals "
+          f"{[round(x, 3) for x in trainer.eval_seconds]} s, eval lengths "
+          f"{[row['eval_len'] for row in history]}, returns "
+          f"{[row['eval_return'] for row in history]}; artifacts {files}; "
+          "resume state read back bit for bit")
+
+
+def training_phase(modules):
+    """Phase 7: 7a, 7b and 7c (see the module docstring)."""
+    import balance_robot_tpu_torch as brt
+    from balance_robot_tpu_torch.models import mlp
+    from balance_robot_tpu_torch.train import checkpoint
+    from balance_robot_tpu_torch.train.ppo import PPOConfig
+    cfg = PPOConfig(**TRAIN_CONFIG)
+    t7 = time.perf_counter()
+    run_training("7a Env01-v2", brt.make("Env01-v2").use_fast_solver(), cfg,
+                 TRAIN_ITERS_01, modules, "K1")
+
+    warm = checkpoint.load(POLICY)
+    unpadded = mlp.from_numpy_params(warm, device="cuda")
+
+    def padded_value_is_unchanged(ppo, ts):
+        with torch.no_grad():
+            padded = ts.net.value(ppo._vobs(ts.last_obs, ts.env_states))
+            base = unpadded.value(ts.last_obs)
+        gap = (padded - base).abs().max().item()
+        scale = max(1.0, base.abs().max().item())
+        print(f"training 7b: warm start from {POLICY}: vf_w1 "
+              f"{tuple(warm['vf_w1'].shape)} -> "
+              f"{tuple(ts.net.vf_l1.weight.T.shape)}; padded vs unpadded "
+              f"value on the first obs: {gap:.3e} (values up to "
+              f"{scale:.3f})")
+        check(gap <= 1e-5 * scale, "7b: the padded critic's value departs "
+              f"from the unpadded one's by {gap:.3e}")
+
+    def privileged_rows_moved(ppo, ts):
+        check(ts.net.vf_l1.weight[:, 6:].abs().max().item() > 0,
+              "7b: the privileged critic rows are still zero after the "
+              "first update")
+
+    run_training("7b Env03-v2 privileged critic",
+                 brt.make("Env03-v2").use_fast_solver(),
+                 PPOConfig(privileged_critic=True, **TRAIN_CONFIG),
+                 TRAIN_ITERS_03, modules, "K2", init_params=warm,
+                 before=padded_value_is_unchanged,
+                 after_first=privileged_rows_moved)
+    train_with_runner(brt.make("Env01-v2").use_fast_solver(), cfg)
+    print(f"training: phase 7 in {time.perf_counter() - t7:.1f} s")
 
 
 def main():
@@ -963,6 +1133,9 @@ def main():
                   f"{b['ops_ms']:.4f} ms by operations, {b['bytes_ms']:.6f} "
                   f"ms by bytes ({100 * b['bound_ms'] / k_ms:.2f}% of the "
                   f"bound reached)")
+
+    # ---- 7. training, outside inference mode (autograd needs it off)
+    training_phase(modules)
 
     static = {
         "K1": ("k1_control_step",

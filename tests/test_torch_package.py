@@ -460,3 +460,87 @@ def test_k3_checked_build_on_the_card(monkeypatch):
                     assert chip_smoke.within(d, chip_smoke.F64_TOL), (B, d)
                     assert set(seen) == set(st.WALL_CONTACT_KINDS)
                     assert all(int(v.sum()) > 0 for v in seen.values())
+
+
+def _held_to_plain(kernel, plain, args, extra, dtype, tol32, **plain_kw):
+    """Two launches of `kernel` give the same finite bits, and its output
+    agrees with `plain` (called with `plain_kw`) within chip_smoke.F64_TOL
+    in float64 and `tol32` in float32."""
+    import chip_smoke
+    out = kernel(*args, *extra)
+    again = kernel(*args, *extra)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(t).all() for t in out)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    d = chip_smoke.drift(out, plain(*args, *extra, **plain_kw))
+    tol = chip_smoke.F64_TOL if dtype == torch.float64 else tol32
+    assert chip_smoke.within(d, tol), (dtype, d)
+
+
+@pytest.mark.cuda
+def test_k1_checked_build_on_the_card(monkeypatch):
+    """A checked build of K1 (-DBRT_CHECK_ROWS: every row-store index held
+    to its range, the team's lanes to the same row count and state; a
+    breach traps) runs a whole control step at Env01 serving's batch and at
+    a ragged batch of the training rollout's size, on robot-floor states
+    in every contact regime, in float32 and float64, at both grades and
+    with per-env friction: two launches give the same bits, and the output
+    agrees with the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc to build K1)")
+    import numpy as np
+    import chip_smoke
+    from balance_robot_tpu_torch.physics import kernel_build
+    info = {}
+    monkeypatch.setattr(cuda_step, "_lib", cuda_step._bind(kernel_build.build(
+        "k1_checked", cuda_step.SOURCE, info,
+        defines=("-DBRT_CHECK_ROWS",))))
+    print(json.dumps(info["resources"]))
+    for B in (256, 1031):
+        qpos, qvel, ws, ctrl, fric = chip_smoke.random_states_np(
+            np.random.default_rng(3), B)
+        for dtype in (torch.float32, torch.float64):
+            args = [torch.tensor(x, dtype=dtype, device="cuda")
+                    for x in (qpos, qvel, ws, ctrl)]
+            for params in (rc.ENV01_PARAMS, fast_solver(rc.ENV01_PARAMS),
+                           fast_solver(rc.ENV02_PARAMS)):
+                fr = (torch.tensor(fric, dtype=dtype, device="cuda")
+                      if params.dynamic_friction else None)
+                _held_to_plain(cuda_step.control_step_cuda,
+                               cuda_step.control_step_plain, args,
+                               (fr, params), dtype, chip_smoke.F32_TOL)
+
+
+@pytest.mark.cuda
+def test_k2_checked_build_on_the_card(monkeypatch):
+    """A checked build of K2 (-DBRT_CHECK_ROWS) runs a whole control step
+    on chip_smoke.py's robot + block states (block parked, in flight,
+    hitting the chassis edge and the wheels: the 8x8 + 6x6 factorization
+    while no robot-block row is active, the coupled 14x14 one where one
+    is) at a ragged batch and at the flagship serving's batch, in float32
+    and float64, at both grades: two launches give the same bits, the
+    output agrees with the plain version, and every block collider was
+    active."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc to build K2)")
+    import numpy as np
+    import chip_smoke
+    from balance_robot_tpu_torch.physics import kernel_build
+    info = {}
+    monkeypatch.setattr(cuda_block, "_lib", cuda_block._bind(
+        kernel_build.build("k2_checked", cuda_block.SOURCE, info,
+                           defines=("-DBRT_CHECK_ROWS",))))
+    print(json.dumps(info["resources"]))
+    for B in (257, 1024):
+        qpos, qvel, ctrl = chip_smoke.random_states14(
+            np.random.default_rng(4), B)
+        for dtype in (torch.float32, torch.float64):
+            args = [torch.tensor(x, dtype=dtype, device="cuda")
+                    for x in (qpos, qvel, np.zeros_like(qvel), ctrl)]
+            for params in (bs.ENV03_PARAMS, fast_solver(bs.ENV03_PARAMS)):
+                seen = {}
+                _held_to_plain(cuda_block.control_step14_cuda,
+                               cuda_block.control_step14_plain, args,
+                               (params,), dtype, chip_smoke.K2_F32_TOL,
+                               contact_counts=seen)
+                assert all(int(v.sum()) > 0 for v in seen.values()), seen
