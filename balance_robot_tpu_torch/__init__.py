@@ -13,15 +13,22 @@ def register(env_id, factory):
     _REGISTRY[env_id] = factory
 
 
+def env_class(env_id):
+    """The registered factory (the env's class) of `env_id`: its class
+    attributes (obs_dim, act_dim, max_episode_steps) without building an
+    env or touching a device."""
+    if env_id not in _REGISTRY:
+        raise KeyError(
+            f"Unknown env id {env_id!r}. Available: {sorted(_REGISTRY)}")
+    return _REGISTRY[env_id]
+
+
 def make(env_id, device=None, dtype=torch.float32, seed=0):
     """Create a batched env by its reference-compatible id.
 
     Runs on CUDA unless `device` names another device; raises when no GPU
     is present and the CPU was not asked for."""
-    if env_id not in _REGISTRY:
-        raise KeyError(
-            f"Unknown env id {env_id!r}. Available: {sorted(_REGISTRY)}")
-    return _REGISTRY[env_id](device=device, dtype=dtype, seed=seed)
+    return env_class(env_id)(device=device, dtype=dtype, seed=seed)
 
 
 def env_ids():

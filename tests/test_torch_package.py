@@ -30,7 +30,7 @@ from balance_robot_tpu_torch.train import checkpoint
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "balance_robot_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "flagship_survival.py"]
 
 
 def _imported_modules(path):
@@ -44,13 +44,15 @@ def _imported_modules(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(PORT_FILES) > 22
     assert {"env03.py", "cuda_block.py", "kernel_build.py", "cuda_move.py",
-            "move.py", "cal01.py", "quant.py", "pipeline.py"} <= {
-        p.name for p in PORT_FILES}
+            "move.py", "cal01.py", "quant.py", "pipeline.py", "cli.py",
+            "onnx_writer.py", "onnx_runtime.py", "native_runtime.py",
+            "bc.py"} <= {p.name for p in PORT_FILES}
     for path in PORT_FILES:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "balance_robot_tpu",
-                               "flax", "optax"), f"{path}: imports {mod}"
+                               "flax", "optax", "click"), \
+                f"{path}: imports {mod}"
 
 
 def test_registry_has_the_ported_ids():
