@@ -29,8 +29,8 @@ import torch
 
 from .device import resolve_device
 
-# train.factory.KNOWN: test and convert read every kind of checkpoint;
-# train runs the trainers the factory implements
+# train.factory.KNOWN: train runs each of them, test and convert read
+# every kind of checkpoint
 ALGORITHMS = ("PPO", "A2C", "SAC", "TD3", "DDPG")
 MODEL_DIR = "models"
 LOG_DIR = "logs"
@@ -76,8 +76,8 @@ def train(args):
                         lr=args.lr, n_epochs=args.epochs,
                         privileged_critic=args.privileged_critic)
     else:
-        # A2C at SB3's defaults; SAC/TD3/DDPG raise NotImplementedError
-        # naming the algorithms the port has
+        # A2C, SAC, TD3 and DDPG at SB3's defaults (the off-policy
+        # trainers at min(num_envs, 256) envs)
         trainer, cfg = algorithm_factory(
             args.algo, env, n_envs=args.num_envs, gamma=args.gamma,
             privileged_critic=args.privileged_critic)
@@ -336,8 +336,7 @@ def build_parser():
         prog="python -m balance_robot_tpu_torch.cli",
         description="Train, run and export balance-robot policies.")
     p.add_argument("-a", "--algorithm", required=True,
-                   help=f"RL algorithm, one of {ALGORITHMS} (train: PPO, "
-                        "A2C)")
+                   help=f"RL algorithm, one of {ALGORITHMS}")
     p.add_argument("-m", "--model", default=None,
                    help="model file (warm start / inference)")
     p.add_argument("--device", choices=["cuda", "cpu"], default=None,

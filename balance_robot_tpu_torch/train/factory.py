@@ -7,16 +7,18 @@ defaults:
   * A2C: the same trainer with SB3's A2C defaults: plain policy gradient
     (no ratio clip), n_steps 5, one epoch over the whole batch,
     gae_lambda 1.0, lr 7e-4 with RMSprop (decay 0.99, eps 1e-5), no
-    advantage normalization.
+    advantage normalization;
+  * SAC / TD3 / DDPG: the off-policy trainers (`train/offpolicy.py`) at
+    SB3's defaults, at most 256 envs; DDPG gets the reference factory's
+    nets (pi 300-200, qf 200-150) and its action noise 0.1.
 
-SAC, TD3 and DDPG are not ported yet and raise NotImplementedError; other
-names raise ValueError, as the reference's check of the name does.
+Other names raise ValueError, as the reference's check of the name does.
 """
 
 from .ppo import PPO, PPOConfig
 
 KNOWN = ("PPO", "A2C", "SAC", "TD3", "DDPG")
-IMPLEMENTED = ("PPO", "A2C")
+IMPLEMENTED = KNOWN
 
 
 def algorithm_factory(name, env, n_envs=1024, n_steps=None,
@@ -38,6 +40,6 @@ def algorithm_factory(name, env, n_envs=1024, n_steps=None,
                         lr=overrides.pop("lr", 7e-4), optimizer="rmsprop",
                         normalize_advantage=False, **overrides)
         return PPO(env, cfg), cfg
-    raise NotImplementedError(
-        f"{name} is not ported to balance_robot_tpu_torch yet; "
-        f"available: {IMPLEMENTED}")
+    from .offpolicy import OffPolicy, default_config
+    cfg = default_config(name, n_envs=min(n_envs, 256), **overrides)
+    return OffPolicy(env, cfg), cfg

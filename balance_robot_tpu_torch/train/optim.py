@@ -77,20 +77,24 @@ def state_arrays(opt, net):
 
 def load_state_arrays(opt, net, arrays):
     """Restore the state that `state_arrays` wrote (the entries of `arrays`
-    under "opt/"), each value on its parameter's device and in its dtype
-    as `Optimizer.load_state_dict` puts it. Raises ValueError when a name
-    or a shape does not match `net`."""
-    names = [name for name, _ in net.named_parameters()]
-    shapes = {name: tuple(p.shape) for name, p in net.named_parameters()}
+    under "opt/") for the parameters of `net` that `opt` steps, each value
+    on its parameter's device and in its dtype as
+    `Optimizer.load_state_dict` puts it. Raises ValueError when a name or a
+    shape does not match `net`."""
+    params = dict(net.named_parameters())
+    index = {id(p): i for i, p in enumerate(
+        p for group in opt.param_groups for p in group["params"])}
     state = {}
     for key, value in arrays.items():
         if not key.startswith("opt/"):
             continue
         name, slot = key[4:].rsplit("/", 1)
-        if name not in shapes or (value.ndim and value.shape != shapes[name]):
+        p = params.get(name)
+        if p is None or (value.ndim and value.shape != tuple(p.shape)):
             raise ValueError(f"optimizer state {key} {value.shape} does not "
                              "fit the net")
-        state.setdefault(names.index(name), {})[slot] = torch.from_numpy(
-            np.array(value))
+        if id(p) in index:      # another optimizer's parameter otherwise
+            state.setdefault(index[id(p)], {})[slot] = torch.from_numpy(
+                np.array(value))
     sd = opt.state_dict()
     opt.load_state_dict({"state": state, "param_groups": sd["param_groups"]})

@@ -13,6 +13,14 @@ callback stack:
   * Monitor-style episode stats to a CSV (and TensorBoard where
     `torch.utils.tensorboard` imports).
 
+The trainer is PPO (or A2C, a PPO with other settings) or an off-policy
+trainer (`train/offpolicy.py`: SAC, TD3, DDPG). Both keep their nets in
+`ts.net` and evaluate them with `trainer.evaluate(ts.net, n)`; the saved
+params are the JAX package's layout of each (`mlp.to_numpy_params`, the
+flat PPO dict, or `offpolicy.to_numpy_params`, the nested tree). An
+off-policy run reports its critic loss as `loss` and `v_loss` and no
+entropy (NaN), and records no trajectories.
+
 Evaluation steps a copy of the env with its own generator, seeded from
 seed + 1 (`ppo.fork_env`), so a run with evals and its resumed twin see
 the same training streams. The iterations run without waiting for the
@@ -27,6 +35,7 @@ import numpy as np
 from ..models import mlp
 from ..utils.guards import assert_finite_tree
 from . import checkpoint as ckpt
+from . import offpolicy
 from .evaluation import ChunkedEvaluator
 from .ppo import PPO, PPOConfig, deterministic_action
 
@@ -39,6 +48,14 @@ def record_episode(env, net, max_steps=None):
     (T, nq) qpos trajectory and its length, for tools/replay.py: the
     headless counterpart of the reference's RecordVideo wrapper."""
     return ChunkedEvaluator(env, deterministic_action).record(net, max_steps)
+
+
+def numpy_params(net):
+    """The JAX package's params of a trainer's net: the flat PPO dict of an
+    ActorCritic, the nested tree of the off-policy nets."""
+    if isinstance(net, offpolicy.OffPolicyNets):
+        return offpolicy.to_numpy_params(net)
+    return mlp.to_numpy_params(net)
 
 
 def _save(path, params, name):
@@ -61,7 +78,8 @@ def train(env, config: PPOConfig, seed=0, total_timesteps=int(1e10),
 
     `resume=True` restores the whole train state and the global step count
     from `<models_dir>/<run_name>/resume_state.npz` if present. `trainer`
-    replaces the default PPO trainer (e.g. A2C from `factory`)."""
+    replaces the default PPO trainer (A2C, SAC, TD3 or DDPG from
+    `factory`; `config` is then its config)."""
     cfg = config
     ppo = trainer if trainer is not None else PPO(env, cfg)
     ts = ppo.init(seed, params=init_params)
@@ -79,7 +97,8 @@ def train(env, config: PPOConfig, seed=0, total_timesteps=int(1e10),
     steps = resumed_steps
     threshold = (reward_threshold if reward_threshold is not None
                  else getattr(env, "reward_threshold", None))
-    steps_per_iter = cfg.n_envs * cfg.n_steps
+    steps_per_iter = cfg.n_envs * (cfg.train_freq if isinstance(
+        ppo, offpolicy.OffPolicy) else cfg.n_steps)
     next_eval = steps + eval_freq
     next_ckpt = steps + ckpt_freq
     history = []
@@ -87,7 +106,7 @@ def train(env, config: PPOConfig, seed=0, total_timesteps=int(1e10),
     # best-model tracking starts from the initial params: a warm-started or
     # resumed run never overwrites a better earlier best_model with a worse
     # one (SB3's EvalCallback starts at -inf and can regress the artifact)
-    best_params = mlp.to_numpy_params(ts.net)
+    best_params = numpy_params(ts.net)
     if init_params is not None or steps:
         b_ret, b_len = ppo.evaluate(ts.net, n_eval_episodes)
         best, best_len = float(b_ret), float(b_len)
@@ -112,7 +131,7 @@ def train(env, config: PPOConfig, seed=0, total_timesteps=int(1e10),
             ts, metrics = ppo.iteration(ts)
             steps += steps_per_iter
             if steps >= next_ckpt:
-                _save(mdir / f"cp_{steps}", mlp.to_numpy_params(ts.net),
+                _save(mdir / f"cp_{steps}", numpy_params(ts.net),
                       "params")
                 _save_resume(resume_path, ts, steps)
                 next_ckpt += ckpt_freq
@@ -121,6 +140,11 @@ def train(env, config: PPOConfig, seed=0, total_timesteps=int(1e10),
                 eval_ret, eval_len = ppo.evaluate(ts.net, n_eval_episodes)
                 eval_ret, eval_len = float(eval_ret), float(eval_len)
                 m = {k: float(v) for k, v in metrics.items()}
+                # off-policy metrics: the critic loss stands for both losses
+                m.setdefault("mean_ep_return", float("nan"))
+                m.setdefault("loss", m.get("critic_loss", float("nan")))
+                m.setdefault("v_loss", m.get("critic_loss", float("nan")))
+                m.setdefault("entropy", float("nan"))
                 wall = time.time() - t0
                 row = dict(steps=steps, wall_s=round(wall, 1),
                            mean_ep_return=round(m["mean_ep_return"], 2),
@@ -140,8 +164,9 @@ def train(env, config: PPOConfig, seed=0, total_timesteps=int(1e10),
                     tb.add_scalar("train/loss", m["loss"], steps)
                     tb.add_scalar("train/value_loss", m["v_loss"], steps)
                     tb.add_scalar("train/entropy_loss", -m["entropy"], steps)
-                    tb.add_scalar("train/explained_variance",
-                                  m["explained_variance"], steps)
+                    if "explained_variance" in m:       # PPO / A2C
+                        tb.add_scalar("train/explained_variance",
+                                      m["explained_variance"], steps)
                     tb.add_scalar("time/fps", steps / max(wall, 1e-9), steps)
                     tb.flush()
                 if verbose:
@@ -151,11 +176,13 @@ def train(env, config: PPOConfig, seed=0, total_timesteps=int(1e10),
                           flush=True)
                 if eval_ret > best:
                     best = eval_ret
-                    best_params = mlp.to_numpy_params(ts.net)
+                    best_params = numpy_params(ts.net)
                     _save(mdir / "best_model", best_params, "params")
                 # a trajectory every `record_every` evals -> movies/ (the
-                # reference's RecordVideo analogue; tools/replay.py renders)
-                if record_every and len(history) % record_every == 0:
+                # reference's RecordVideo analogue; tools/replay.py renders),
+                # of the on-policy trainers only, as in the JAX package
+                if (record_every and len(history) % record_every == 0
+                        and isinstance(ppo, PPO)):
                     qpos, ep_len = record_episode(ppo.eval_env, ts.net)
                     mv = pathlib.Path(movies_dir)
                     mv.mkdir(parents=True, exist_ok=True)
@@ -165,7 +192,7 @@ def train(env, config: PPOConfig, seed=0, total_timesteps=int(1e10),
                 # "balances consistently", i.e. episode length)
                 if eval_len > best_len:
                     best_len = eval_len
-                    _save(mdir / "longest_model", mlp.to_numpy_params(ts.net),
+                    _save(mdir / "longest_model", numpy_params(ts.net),
                           "params")
                 if threshold is not None and eval_ret >= threshold:
                     if verbose:
@@ -181,7 +208,7 @@ def train(env, config: PPOConfig, seed=0, total_timesteps=int(1e10),
         logf.close()
         if tb is not None:
             tb.close()
-    _save(mdir / "final_model", mlp.to_numpy_params(ts.net), "params")
+    _save(mdir / "final_model", numpy_params(ts.net), "params")
     # leave the resume state at every exit, whatever the checkpoint cadence
     _save_resume(resume_path, ts, steps)
     return best_params, history

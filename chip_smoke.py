@@ -69,10 +69,34 @@ Phases, in order; any failure exits non-zero before the final line:
      within 3 standard errors of the JAX package's (BC_SURVIVAL_JAX), and
      K1's launch at collection step BC_HOLD_AT (exact grade, float32) held
      to its plain version as in (a);
-     (d) `train -a PPO` and `-a A2C` on Env01-v2 for 2 iterations with an
-     eval after each, K1 once per env step, their artifacts; `-a SAC`
-     raises NotImplementedError. `chip_smoke.cli_phase(modules)` runs
-     phase 8 alone (with `build_kernels()` for the modules).
+     (d) `train -a PPO`, `-a A2C`, `-a SAC`, `-a TD3` and `-a DDPG` on
+     Env01-v2 for 2 iterations with an eval after each, K1 once per env
+     step, their artifacts; the off-policy params with the keys and
+     shapes of the committed models/Env01-v2_<ALGO>, their resume state
+     read back bit for bit, nothing under movies/; `convert` of the SAC
+     artifact writes its .onnx. `chip_smoke.cli_phase(modules)` runs
+     phase 8 alone (with `build_kernels()` for the modules);
+  9. the off-policy trainers (outside inference mode) at the factory's
+     defaults (256 envs, a 1e6-row buffer on the card, batch 256, one env
+     step and one update per iteration), gamma 0.999, fast solver:
+     (a) SAC on Env01-v2 from a fresh init, 300 iterations, one K1 launch
+     per iteration and no other kernel, ptr = 300 x 256, every param
+     finite, log_alpha moved; (b) TD3 and DDPG likewise, 100 iterations
+     each, and TD3's actor_t unchanged across an update at an odd
+     grad_steps, moved across one at an even; (c) SAC on Env03-v2 with
+     the privileged critic warm-started from models/Env03-v2_SAC (Q's
+     first layer 8 -> 16 rows), 50 iterations, K2 only, the padded Q equal
+     to the checkpoint's on the first update's batch, the privileged rows
+     nonzero after the updates; each prints ms per iteration, collect and
+     update (CUDA events), training transitions/s and the buffer's bytes;
+     (d) models/Env01-v2_SAC and _TD3 served through OffPolicy's
+     evaluator, 256 fresh episodes of 200 steps each, survival >=
+     SURVIVAL_FLOOR; (e) the harvest of fatal states
+     (`train/harvest.py`) on Env03-v2 with models/Env03-v2_r2i, 512
+     episodes of at most 300 steps, block_delay 0.04, chunks of 50,
+     through K2: the bank's invariants, and bank[0] restarted at t = 0 on
+     a fresh generator for one finite K2 step.
+     `chip_smoke.off_policy_phase(modules)` runs phase 9 alone.
 It ends with one JSON line per the contract: {"ok": true, "device": ...}.
 """
 
@@ -138,6 +162,24 @@ TRAIN_CONFIG = dict(n_envs=1024, n_steps=32, minibatch_size=1024,
 TRAIN_ITERS_01 = 3
 TRAIN_ITERS_03 = 2
 TRAIN_ITERS_RUNNER = 2
+# phase 9: the off-policy trainers at the factory's defaults (256 envs,
+# buffer 1e6, batch 256, one env step and one update per iteration), fast
+# grade, gamma 0.999 as in phase 7
+OFF_GAMMA = 0.999
+OFF_ITERS = {"SAC": 300, "TD3": 100, "DDPG": 100}
+OFF_ITERS_03 = 50
+POLICY03_SAC = "models/Env03-v2_SAC/best_model.npz"
+# 9d: the committed off-policy checkpoints served as phase 5a serves PPO
+OFF_SERVED = {"SAC": "models/Env01-v2_SAC/best_model.npz",
+              "TD3": "models/Env01-v2_TD3/best_model.npz"}
+OFF_SERVE_SEED = 4001
+# 9e: the harvest of fatal states (the JAX package's test settings at the
+# serving batch)
+HARVEST_EPISODES = 512
+HARVEST_STEPS = 300
+HARVEST_CHUNK = 50
+HARVEST_DELAY = 0.04
+HARVEST_SEED = 3
 # phase 8: the CLI. The B = 1 serving loops on Env03-v2 and EnvMove05-v1
 # run max_steps + 201 steps unless the robot falls
 CLI_SERVE_STEPS = 300
@@ -1066,12 +1108,21 @@ def cli_bc(modules):
 
 
 def cli_train(modules):
-    """8d: `train -a PPO` and `-a A2C` on Env01-v2 for 2 iterations each
-    with an eval after each (K1 once per env step, the evals' included);
-    the run directories' artifacts; `-a SAC` raises NotImplementedError."""
+    """8d: `train -a PPO`, `-a A2C`, `-a SAC`, `-a TD3` and `-a DDPG` on
+    Env01-v2 for 2 iterations each with an eval after each (K1 once per env
+    step, the evals' included); the run directories' artifacts; the
+    off-policy params with the committed checkpoints' keys and shapes,
+    their resume state read back bit for bit, no recording; `convert` of
+    the SAC artifact writes its .onnx."""
+    import balance_robot_tpu_torch as brt
     from balance_robot_tpu_torch.envs.env01 import Env01V2
+    from balance_robot_tpu_torch.train import checkpoint, factory, offpolicy
 
-    for algo, per_iter in (("PPO", 1024 * 32), ("A2C", 1024 * 5)):
+    root = pathlib.Path(__file__).resolve().parent
+    for algo, per_iter in (("PPO", 1024 * 32), ("A2C", 1024 * 5),
+                           ("SAC", 256), ("TD3", 256), ("DDPG", 256)):
+        off = algo in OFF_ITERS
+        movies = _files(pathlib.Path("movies"))
         env_steps = []
         step = Env01V2.step
 
@@ -1084,7 +1135,7 @@ def cli_train(modules):
             lines, seconds = run_cli([
                 "-a", algo, "train", "-e", "Env01-v2", "--solver", "fast",
                 "--total-timesteps", str(2 * per_iter), "--eval-freq",
-                str(per_iter)])
+                str(per_iter)] + (["--record-every", "1"] if off else []))
         counts = counts_of(modules)
         check(counts == {"K1": len(env_steps), "K2": 0, "K3": 0},
               f"8d: train -a {algo} must launch K1 once per env step "
@@ -1096,16 +1147,59 @@ def cli_train(modules):
         rows = csv.read_text().splitlines() if csv.exists() else []
         check(all(files.values()) and len(rows) == 3,
               f"8d: train -a {algo} artifacts: {files}, {csv}: {rows}")
+        extra = ""
+        if off:
+            committed = checkpoint.load(
+                root / "models" / f"Env01-v2_{algo}" / "best_model.npz")
+            shapes = {k: v.shape for k, v in committed.items()}
+            for f in ("best_model", "final_model"):
+                mine = checkpoint.load(run / f)
+                check({k: v.shape for k, v in mine.items()} == shapes,
+                      f"8d: {algo} {f} keys/shapes differ from the "
+                      f"committed models/Env01-v2_{algo}")
+            tr, _ = factory.algorithm_factory(
+                algo, brt.make("Env01-v2").use_fast_solver())
+            ts, steps = checkpoint.load_train_state(
+                run / "resume_state.npz", tr.init(1))
+            final = checkpoint.load(run / "final_model")
+            back = checkpoint.flatten(offpolicy.to_numpy_params(ts.net), "",
+                                      {})
+            checkpoint.save_train_state(run / "again.npz", ts, steps)
+            with np.load(run / "resume_state.npz") as a, \
+                    np.load(run / "again.npz") as b:
+                same = a.files == b.files and all(
+                    np.array_equal(a[k], b[k]) for k in a.files)
+            check(same and steps == ts.ptr == 2 * per_iter
+                  and all(np.array_equal(back[k], final[k]) for k in final),
+                  f"8d: {algo}'s resume state is not read back bit for bit")
+            (run / "again.npz").unlink()
+            check(_files(pathlib.Path("movies")) == movies,
+                  f"8d: train -a {algo} wrote into movies/")
+            extra = (f"; params with the keys and shapes of the committed "
+                     f"models/Env01-v2_{algo}, the resume state "
+                     f"({ts.ptr} buffer rows) read back bit for bit, nothing "
+                     "recorded")
         print(f"cli 8d: train -a {algo} -e Env01-v2: 2 iterations and 2 "
               f"evals in {seconds:.2f} s, {counts['K1']} K1 launches = "
-              f"env steps (rollouts {2 * per_iter // 1024} at B = 1024, the "
-              "rest the evals' at B = 5); " + "; ".join(lines))
-    try:
-        run_cli(["-a", "SAC", "train", "-e", "Env01-v2"])
-        fail("8d: train -a SAC did not raise")
-    except NotImplementedError as e:
-        check("PPO" in str(e) and "A2C" in str(e), f"8d: {e}")
-        print(f"cli 8d: train -a SAC raises NotImplementedError({e})")
+              f"env steps (rollouts {2 * per_iter // (256 if off else 1024)}"
+              f" at B = {256 if off else 1024}, the rest the evals' at "
+              f"B = 5){extra}; " + "; ".join(lines))
+    sac = pathlib.Path("models") / "Env01-v2_SAC"
+    convert = ["-a", "SAC", "-m", str(sac / "best_model"), "convert", "-e",
+               "Env01-v2"]
+    if importlib.util.find_spec("tensorflow") is None:
+        try:
+            run_cli(convert)
+            fail("8d: convert passed the SavedModel without TensorFlow")
+        except ImportError:
+            pass
+    else:
+        run_cli(convert)
+    onnx = sac / "best_model.onnx"
+    check(onnx.exists() and onnx.stat().st_size > 0,
+          "8d: convert wrote no .onnx for the SAC artifact")
+    print(f"cli 8d: convert -a SAC wrote {onnx} ({onnx.stat().st_size} "
+          "bytes)")
 
 
 def cli_phase(modules):
@@ -1137,6 +1231,211 @@ def cli_phase(modules):
           "or movies/")
     print(f"cli: phase 8 in {time.perf_counter() - t8:.1f} s; nothing new "
           "under models/, logs/ or movies/")
+
+
+# ---------------------------------------------------------------- phase 9
+
+def buffer_bytes(buf):
+    return sum(t.numel() * t.element_size() for t in buf)
+
+
+def run_off_policy(name, tr, ts, iters, modules, kernel):
+    """`iters` iterations of the off-policy trainer `tr` from `ts`, with
+    every kernel's count set to 0 just before and read just after: only
+    `kernel` may have been launched, once per iteration (one env step).
+    Prints the times (the first iteration apart: it includes the first use
+    of autograd and of the optimizers). Returns ts."""
+    from balance_robot_tpu_torch.utils.profiling import Timer
+    cfg = tr.cfg
+    ptr0 = ts.ptr
+    first, timer = Timer(), Timer()
+    torch.cuda.synchronize()
+    zero_counts(modules)
+    t0 = time.perf_counter()
+    for i in range(iters):
+        t = first if i == 0 else timer
+        with t("iteration"):
+            ts, metrics = tr.iteration(ts, timer=t)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = counts_of(modules)
+    check(counts == {n: iters * (n == kernel) for n in modules},
+          f"{name} must launch {kernel} {iters} times and no other kernel: "
+          f"{counts}")
+    check(ts.ptr == ptr0 + iters * cfg.n_envs,
+          f"{name}: ptr {ts.ptr}, expected {ptr0 + iters * cfg.n_envs}")
+    values = {k: float(v) for k, v in metrics.items()}
+    check(all(np.isfinite(v) for v in values.values()),
+          f"{name} metrics not finite: {values}")
+    check(all(torch.isfinite(p).all().item() for p in ts.net.parameters()),
+          f"{name}: a param is not finite")
+    rep, rep1 = timer.report(), first.report()
+    it = rep["iteration"]["mean_ms"]
+    print(f"training {name}: {iters} iterations of {cfg.n_envs} envs x 1 "
+          f"step + {cfg.train_freq * cfg.gradient_steps} update of batch "
+          f"{cfg.batch_size}, in {seconds:.3f} s ({kernel} launches "
+          f"{counts[kernel]}, {ts.grad_steps} updates, ptr {ts.ptr}); after "
+          f"the first: {it:.3f} ms per iteration = collect "
+          f"{rep['collect']['mean_ms']:.3f} ms + update "
+          f"{rep['update']['mean_ms']:.3f} ms, "
+          f"{cfg.n_envs / it * 1e3:.1f} training transitions/s; the first "
+          f"{rep1['iteration']['mean_ms']:.1f} ms (collect "
+          f"{rep1['collect']['mean_ms']:.1f}, update "
+          f"{rep1['update']['mean_ms']:.1f}); buffer "
+          f"{buffer_bytes(ts.buffer)} bytes ({cfg.buffer_size} rows), peak "
+          f"allocated {torch.cuda.max_memory_allocated()} bytes; last "
+          "metrics " + ", ".join(f"{k} {v:.4g}" for k, v in values.items()))
+    return ts
+
+
+def off_policy_phase(modules):
+    """Phase 9: 9a-9e (see the module docstring)."""
+    import balance_robot_tpu_torch as brt
+    from balance_robot_tpu_torch.envs.base import tree_map
+    from balance_robot_tpu_torch.models import mlp
+    from balance_robot_tpu_torch.train import checkpoint, factory, offpolicy
+    from balance_robot_tpu_torch.train.harvest import harvest_fatal_states
+
+    t9 = time.perf_counter()
+    # ---- 9a, 9b: SAC, TD3, DDPG on Env01-v2 from a fresh init
+    for algo, iters in OFF_ITERS.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr, cfg = factory.algorithm_factory(
+            algo, brt.make("Env01-v2").use_fast_solver(), gamma=OFF_GAMMA)
+        check((cfg.n_envs, cfg.buffer_size, cfg.batch_size, cfg.train_freq,
+               cfg.gradient_steps) == (256, 1_000_000, 256, 1, 1),
+              f"9: {algo}'s factory defaults changed: {cfg}")
+        ts = run_off_policy(f"9{'a' if algo == 'SAC' else 'b'} {algo} "
+                            "Env01-v2", tr, tr.init(0), iters, modules, "K1")
+        if algo == "SAC":
+            check(ts.net.log_alpha.item() != 0.0,
+                  "9a: log_alpha did not move from 0")
+        if algo == "TD3":
+            # actor_t moves on the updates that step the actor (an even
+            # grad_steps before the update) and only on those
+            moved = {}
+            for _ in range(2):
+                before = [p.clone() for p in ts.net.actor_t.parameters()]
+                parity = ts.grad_steps % 2
+                ts, _ = tr._update(ts)
+                moved[parity] = not all(torch.equal(a, b) for a, b in zip(
+                    before, ts.net.actor_t.parameters()))
+            check(moved == {0: True, 1: False},
+                  f"9b: TD3's actor_t moved by grad_steps parity: {moved}")
+            print("training 9b TD3: actor_t unchanged across an update at "
+                  "an odd grad_steps, moved across one at an even")
+        del tr, ts
+
+    # ---- 9c: SAC on Env03-v2 with the privileged critic, warm-started
+    # from the committed symmetric SAC
+    warm = checkpoint.load(POLICY03_SAC)
+    tr, cfg = factory.algorithm_factory(
+        "SAC", brt.make("Env03-v2").use_fast_solver(), gamma=OFF_GAMMA,
+        privileged_critic=True)
+    ts = tr.init(0, params=warm)
+    ck = offpolicy.from_numpy_params(warm, "SAC", device="cuda")
+    check(tuple(ck.q1[0].w.shape) == (8, 256)
+          and tuple(ts.net.q1[0].w.shape) == (16, 256),
+          f"9c: Q widths {tuple(ck.q1[0].w.shape)} -> "
+          f"{tuple(ts.net.q1[0].w.shape)}")
+    update, seen = tr._update, {}
+
+    def first_update(ts, idx=None, normals=None):
+        """The first update's batch, drawn as `_update` draws it, on which
+        the padded Q must equal the checkpoint's."""
+        if not seen:
+            idx = torch.randint(0, max(min(ts.ptr, cfg.buffer_size), 1),
+                                (cfg.batch_size,), generator=ts.gen,
+                                device="cuda")
+            b = ts.buffer
+            with torch.no_grad():
+                padded = tr._q(ts.net.q1, b.obs[idx], b.act[idx], b.priv[idx])
+                base = ck.q1(torch.cat((b.obs[idx], b.act[idx]), -1))[..., 0]
+            seen.update(gap=(padded - base).abs().max().item(),
+                        scale=max(1.0, base.abs().max().item()),
+                        priv=b.priv[idx].abs().max().item())
+        return update(ts, idx=idx, normals=normals)
+
+    tr._update = first_update
+    ts = run_off_policy("9c SAC Env03-v2 privileged critic", tr, ts,
+                        OFF_ITERS_03, modules, "K2")
+    print(f"training 9c: warm start from {POLICY03_SAC}: q1/0/w (8, 256) "
+          f"-> (16, 256); padded vs the checkpoint's Q on the first batch: "
+          f"{seen['gap']:.3e} (values up to {seen['scale']:.3f}; privileged "
+          f"features up to {seen['priv']:.3f})")
+    check(seen["gap"] <= 1e-5 * seen["scale"] and seen["priv"] > 0,
+          f"9c: the padded Q departs from the checkpoint's: {seen}")
+    check(all(getattr(ts.net, q)[0].w[8:].abs().max().item() > 0
+              for q in ("q1", "q2")),
+          "9c: the privileged Q rows are still zero after the updates")
+    del tr, ts
+
+    # ---- 9d: the committed off-policy checkpoints, served
+    for algo, path in OFF_SERVED.items():
+        env = brt.make("Env01-v2", seed=OFF_SERVE_SEED).use_fast_solver()
+        tr, _ = factory.algorithm_factory(algo, env)
+        net = offpolicy.from_numpy_params(checkpoint.load(path), algo,
+                                          device="cuda")
+        zero_counts(modules)
+        t0 = time.perf_counter()
+        rets, lens = tr.evaluator.evaluate_detail(net, SERVE_EPISODES,
+                                                  SERVE_STEPS)
+        seconds = time.perf_counter() - t0
+        survival = float((lens >= SERVE_STEPS).mean())
+        print(f"serving 9d: {path} through OffPolicy's evaluator, "
+              f"{SERVE_EPISODES} Env01-v2 episodes, max {SERVE_STEPS} "
+              f"steps, fast grade, in {seconds:.2f} s with "
+              f"{modules['K1'].launches} K1 launches: survival "
+              f"{survival:.4f}, mean return {rets.mean():.4f}")
+        check(counts_of(modules)["K2"] == counts_of(modules)["K3"] == 0
+              and modules["K1"].launches > 0, "9d: another kernel launched")
+        check(survival >= SURVIVAL_FLOOR,
+              f"9d: {algo} survival {survival:.3f} < {SURVIVAL_FLOOR}")
+
+    # ---- 9e: the harvest of fatal states through K2
+    env = brt.make("Env03-v2").use_fast_solver()
+    env.block_delay = HARVEST_DELAY
+    env.max_episode_steps = HARVEST_STEPS
+    params = checkpoint.load(POLICY03)
+    zero_counts(modules)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bank, info = harvest_fatal_states(env, params, HARVEST_EPISODES,
+                                      HARVEST_SEED, HARVEST_CHUNK)
+    seconds = time.perf_counter() - t0
+    counts = counts_of(modules)
+    n = info["n_bank"]
+    check(counts["K1"] == counts["K3"] == 0 and counts["K2"] > 0
+          and counts["K2"] % HARVEST_CHUNK == 0,
+          f"9e: the harvest must launch K2 only, per chunk: {counts}")
+    check(0 < n <= info["n_fatal"] and (info["death_dt"] >= 0).all()
+          and info["obs"].shape == (n, 6)
+          and all(leaf.shape[0] == n for leaf in checkpoint.flatten(
+              bank, "", {}).values()),
+          f"9e: the bank breaks its invariants: "
+          f"{ {k: v for k, v in info.items() if k != 'obs'} }")
+    fresh = brt.make("Env03-v2", seed=9).use_fast_solver()
+    one = tree_map(lambda x: x[:1], bank)
+    one = one._replace(t=torch.zeros_like(one.t))
+    one, obs = fresh._obs(one, fresh._noise(1, 2))
+    net = mlp.from_numpy_params(params, device="cuda")
+    before = modules["K2"].launches
+    with torch.no_grad():
+        s2, obs2, r, _, _ = fresh.step(one, net.policy_mean(obs).clamp(-1, 1))
+    check(modules["K2"].launches == before + 1
+          and torch.isfinite(obs2).all().item()
+          and torch.isfinite(r).all().item()
+          and all(torch.isfinite(t).all().item() for t in s2.phys),
+          "9e: the step from bank[0] is not finite")
+    print(f"harvest 9e: Env03-v2 {POLICY03}, {HARVEST_EPISODES} episodes of "
+          f"at most {HARVEST_STEPS} steps, block_delay {HARVEST_DELAY}, "
+          f"chunk {HARVEST_CHUNK}, fast grade, in {seconds:.2f} s with "
+          f"{counts['K2']} K2 launches: full-horizon rate "
+          f"{info['full_rate']:.4f}, {info['n_fatal']} fatal, {n} banked, "
+          f"death_dt median {np.median(info['death_dt']):.1f} steps; bank[0] "
+          "restarted at t = 0 on a fresh generator, one finite K2 step")
+    print(f"off-policy: phase 9 in {time.perf_counter() - t9:.1f} s")
 
 
 def main():
@@ -1579,6 +1878,8 @@ def main():
     # ---- 8. the CLI's commands, in-process (bc-init and train need
     # autograd too)
     cli_phase(modules)
+    # ---- 9. the off-policy trainers and the harvest
+    off_policy_phase(modules)
 
     static = {
         "K1": ("k1_control_step",

@@ -309,9 +309,10 @@ def test_test_command_on_a_stub(workdir, capsys):
 
 
 def test_train_and_bc_init_on_a_stub(workdir, capsys):
-    """train -a PPO / A2C for two iterations with an eval after each (the
-    runner's artifacts under models/ and logs/ of the working directory);
-    -a SAC raises the factory's NotImplementedError; bc-init at its
+    """train -a PPO / A2C / SAC for two iterations with an eval after each
+    (the runner's artifacts under models/ and logs/ of the working
+    directory; SAC at the CLI's 1e6-row buffer, its second iteration past
+    learning_starts, so it updates once, and no recordings); bc-init at its
     defaults saves a warm start that PPO loads."""
     base = ["-a", "PPO", "--device", "cpu", "train", "-e", "Stub-v0",
             "--num-envs", "8", "--rollout-steps", "4", "--minibatch", "8",
@@ -328,8 +329,20 @@ def test_train_and_bc_init_on_a_stub(workdir, capsys):
     cli.main(base[:9] + ["--total-timesteps", "80", "--eval-freq", "40"])
     assert (workdir / "models" / "Stub-v0_A2C" / "final_model.npz").exists()
     base[1] = "SAC"
-    with pytest.raises(NotImplementedError, match="PPO.*A2C"):
-        cli.main(base)
+    cli.main(base[:7] + ["--num-envs", "64", "--total-timesteps", "128",
+                         "--eval-freq", "64", "--record-every", "1"])
+    run = workdir / "models" / "Stub-v0_SAC"
+    params = checkpoint.load(run / "final_model")
+    committed = checkpoint.load(ROOT / "models" / "Env01-v2_SAC" /
+                                "best_model")
+    assert {k: v.shape for k, v in params.items()} == {
+        k: v.shape for k, v in committed.items()}
+    for f in ("best_model", "longest_model", "resume_state"):
+        assert (run / f"{f}.npz").exists(), f
+    rows = (workdir / "logs" / "Stub-v0_SAC.csv").read_text().splitlines()
+    assert len(rows) == 3 and rows[1].split(",")[5] == "nan", rows
+    assert np.isfinite(float(rows[2].split(",")[5])), rows
+    assert len(list((workdir / "movies").iterdir())) == 2
 
     cli.main(["-a", "PPO", "--device", "cpu", "bc-init", "-e", "Stub-v0",
               "--out", "bc.npz", "--log-std", "-0.5"])

@@ -33,6 +33,7 @@ from balance_robot_tpu.train.ppo import TrainState as JTrainState
 import balance_robot_tpu_torch as brt
 from balance_robot_tpu_torch.models import mlp
 from balance_robot_tpu_torch.train import checkpoint, factory, optim
+from balance_robot_tpu_torch.train.offpolicy import OffPolicy
 from balance_robot_tpu_torch.train.ppo import (PPO, PPOConfig,
                                                explained_variance)
 
@@ -310,20 +311,20 @@ def test_warm_start_pads_the_privileged_critic_exactly():
 
 # ------------------------------------------------- factory and real env
 
-@pytest.mark.parametrize("name", ["PPO", "A2C"])
+@pytest.mark.parametrize("name", ["PPO", "A2C", "SAC", "TD3", "DDPG"])
 def test_factory_matches_jax(name):
     _, ref = jfactory.algorithm_factory(name, jbrt.make("Env01-v1"),
                                         n_envs=8)
-    ppo, cfg = factory.algorithm_factory(
+    trainer, cfg = factory.algorithm_factory(
         name, brt.make("Env01-v1", device="cpu"), n_envs=8)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
-    assert isinstance(ppo, PPO) and ppo.cfg == cfg
+    kind = PPO if name in ("PPO", "A2C") else OffPolicy
+    assert isinstance(trainer, kind) and trainer.cfg == cfg
+    assert factory.IMPLEMENTED == factory.KNOWN == jfactory.IMPLEMENTED
 
 
-def test_factory_refuses_what_is_not_ported():
+def test_factory_refuses_unknown_names():
     env = brt.make("Env01-v1", device="cpu")
-    with pytest.raises(NotImplementedError):
-        factory.algorithm_factory("SAC", env)
     with pytest.raises(ValueError, match="unknown algorithm"):
         factory.algorithm_factory("QMIX", env)
 
