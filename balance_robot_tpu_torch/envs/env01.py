@@ -7,12 +7,15 @@ Randomness comes from the env's `torch.Generator` on the env's device. A
 step of v2 draws 4 uniforms per env, in the JAX package's order: the
 reward's pitch noise, the termination pitch noise, then the two noisy
 pitch reads of the obs. `step(..., uniforms=...)` takes those draws
-explicitly instead, so a caller can replay another stream.
+explicitly instead, so a caller can replay another stream. Every draw of
+every env goes through `_uniform` with the batch first, so that a rank of a
+sharded run draws the global batch's uniforms and keeps its own rows.
 """
 
 import torch
 
 from ..device import resolve_device
+from ..parallel.mesh import global_draw
 from ..physics import fast_solver
 from ..physics import robot_core as rc
 from ..physics.cuda_step import control_step
@@ -36,6 +39,8 @@ class Env01V1:
     reset_z_range = 0.2
     # whether the pitch reads are noisy (v2): 4 uniforms per env and step
     noisy = False
+    # (rank, size) on a rank of a sharded run (`train.ppo.shard_env`)
+    shard = None
 
     def __init__(self, device=None, dtype=torch.float32, seed=0):
         self.device = resolve_device(device)
@@ -50,8 +55,11 @@ class Env01V1:
         return self
 
     def _uniform(self, *shape):
-        return torch.rand(shape, generator=self.generator, device=self.device,
-                          dtype=self.dtype)
+        """Uniforms (batch first) from the env's generator; on a rank of a
+        sharded run, its rows of the global batch's draw."""
+        return global_draw(lambda s: torch.rand(
+            s, generator=self.generator, device=self.device,
+            dtype=self.dtype), shape, self.shard)
 
     def _zeros(self, shape, dtype=None):
         return torch.zeros(shape, device=self.device,

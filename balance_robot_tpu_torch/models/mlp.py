@@ -17,6 +17,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.mesh import global_draw
+
 _TRUNK = (("w1", "l1"), ("w2", "l2"), ("wout", "out"))
 
 
@@ -60,8 +62,8 @@ class ActorCritic(nn.Module):
     def log_prob(self, mean, actions):
         return log_prob(mean, self.log_std, actions)
 
-    def sample(self, mean, generator=None):
-        return sample(mean, self.log_std, generator)
+    def sample(self, mean, generator=None, shard=None):
+        return sample(mean, self.log_std, generator, shard)
 
     def deployable_params(self, obs_dim=None):
         """Numpy params with a privileged critic sliced back to the actor's
@@ -79,9 +81,12 @@ def entropy(log_std):
     return (log_std + 0.5 * math.log(2 * math.pi * math.e)).sum()
 
 
-def sample(mean, log_std, generator=None):
-    noise = torch.randn(mean.shape, generator=generator, device=mean.device,
-                        dtype=mean.dtype)
+def sample(mean, log_std, generator=None, shard=None):
+    """mean + std * noise. `shard` = (rank, size): the noise is the rank's
+    rows of the global batch's draw (`parallel.mesh.global_draw`)."""
+    noise = global_draw(lambda shape: torch.randn(
+        shape, generator=generator, device=mean.device, dtype=mean.dtype),
+        mean.shape, shard)
     return mean + torch.exp(log_std) * noise
 
 

@@ -26,6 +26,26 @@ resets and noise; the evaluator steps a copy of the env with a generator of
 its own (`fork_env`), so evaluating never moves the training streams.
 Nothing in an iteration waits for the host: metrics stay 0-dim tensors on
 the device until a caller reads them.
+
+Data-parallel over ranks (`parallel/mesh.py`): a train state that
+`mesh.shard_train_state` placed carries `ts.mesh`, and its env-batch
+leaves hold this rank's n_envs / W envs. Each rank steps its envs through
+the kernel (`shard_env`: the env's draws, and the action noise, are the
+rank's rows of the global batch's, so the run equals the one-process run
+of the same seed). Once per iteration the trajectory (obs, actions, logp,
+value, reward, done, the critic's privileged inputs, the completed
+episodes' returns) and the last value inputs are gathered, in one
+collective. The update then runs replicated on the gathered (T, B_global)
+batch: GAE, the explained variance and `_update` run unchanged on every
+rank, so the params stay replicated with no gradient all-reduce and equal
+the one-process update's. Why not all-reduce gradients, as the JAX
+package's sharded jit does: each minibatch is cut from a permutation of
+the global batch and normalizes its advantages over the whole minibatch,
+so it needs samples from every rank anyway; an all-reduce per minibatch
+step would be 320-640 collectives per iteration at the CLI's defaults (10
+epochs x 32 minibatches) against this one; and the 64-64 MLP's update is
+host-bound, so what the ranks must split is the rollout, where the
+kernels spend the time.
 """
 
 import contextlib
@@ -38,6 +58,7 @@ import torch
 from ..envs.privileged import PrivilegedObsEnv
 from ..envs.vector import VecEnv
 from ..models import mlp
+from ..parallel import mesh as mesh_lib
 from . import optim
 from .evaluation import ChunkedEvaluator
 
@@ -74,6 +95,8 @@ class TrainState(NamedTuple):
     ep_len: torch.Tensor        # (B,) int32
     stat_sum_ret: torch.Tensor  # sum of completed-episode returns
     stat_n_eps: torch.Tensor
+    mesh: Any = None            # parallel.mesh.Mesh of a sharded run: the
+                                # env-batch leaves hold this rank's rows
 
 
 def fork_env(env, seed):
@@ -84,6 +107,17 @@ def fork_env(env, seed):
     twin = copy.copy(env)
     twin.generator = torch.Generator(device=env.device)
     twin.generator.manual_seed(seed)
+    return twin
+
+
+def shard_env(env, rank, size):
+    """A copy of `env` for rank `rank` of `size` that shares its generator
+    and draws every batch of uniforms at the global batch, keeping its own
+    rows."""
+    if isinstance(env, PrivilegedObsEnv):
+        return PrivilegedObsEnv(shard_env(env._env, rank, size))
+    twin = copy.copy(env)
+    twin.shard = (rank, size)
     return twin
 
 
@@ -112,6 +146,7 @@ class PPO:
         # evaluation steps its own copy of the env (reseeded by init)
         self.eval_env = fork_env(env, 1)
         self.evaluator = ChunkedEvaluator(self.eval_env, deterministic_action)
+        self._shard_vecs = {}
 
     # ------------------------------------------------------------ init
     def init(self, seed, params=None):
@@ -155,24 +190,38 @@ class PPO:
                          -1)
 
     # --------------------------------------------------------- rollout
+    def _vec_of(self, mesh):
+        """The VecEnv of this rank's envs (all of them without a mesh)."""
+        if mesh is None:
+            return self.vec
+        if mesh.shard not in self._shard_vecs:
+            self._shard_vecs[mesh.shard] = VecEnv(
+                shard_env(self.env, *mesh.shard),
+                self.cfg.n_envs // mesh.size, with_priv=self.priv_dim > 0)
+        return self._shard_vecs[mesh.shard]
+
     @torch.no_grad()
     def _rollout(self, ts: TrainState):
-        """n_steps steps of every env -> (ts, traj of (T, B, ...) tensors)."""
+        """n_steps steps of every env (of this rank's, with a mesh) ->
+        (ts, traj of (T, B, ...) tensors). Without a mesh the completed
+        episodes go into the stats; with one, traj keeps their returns
+        ("done_ret") for `iteration` to gather first."""
         cfg, net = self.cfg, ts.net
-        T, B = cfg.n_steps, cfg.n_envs
+        T = cfg.n_steps
+        vec = self._vec_of(ts.mesh)
+        shard = None if ts.mesh is None else ts.mesh.shard
         env_states, obs = ts.env_states, ts.last_obs
         ep_ret, ep_len = ts.ep_ret, ts.ep_len
-        stat_sum, stat_n = ts.stat_sum_ret, ts.stat_n_eps
         steps = []
         for _ in range(T):
             vobs = self._vobs(obs, env_states)
             mean = net.policy_mean(obs)
             val = net.value(vobs)
-            actions = net.sample(mean, ts.gen)
+            actions = net.sample(mean, ts.gen, shard)
             logp = net.log_prob(mean, actions)
             # SB3 clips the env's action to the Box; the unclipped sample is
             # what is stored and enters the gradient
-            env_states, out = self.vec.step(env_states, actions.clamp(-1, 1))
+            env_states, out = vec.step(env_states, actions.clamp(-1, 1))
             # timeout bootstrap where truncated and not terminated
             term_obs = out.terminal_obs.to(self.dtype)
             term_vobs = (torch.cat((term_obs, out.terminal_priv.to(
@@ -182,27 +231,54 @@ class PPO:
                 boot, cfg.gamma * net.value(term_vobs), 0.0)
             ep_ret = ep_ret + out.reward
             ep_len = ep_len + 1
-            stat_sum = stat_sum + torch.where(out.done, ep_ret, 0.0).sum()
-            stat_n = stat_n + out.done.sum()
+            done_ret = torch.where(out.done, ep_ret, 0.0)
             ep_ret = torch.where(out.done, 0.0, ep_ret)
             ep_len = torch.where(out.done, 0, ep_len)
             step = dict(obs=obs, actions=actions, logp=logp, value=val,
-                        reward=reward, done=out.done)
+                        reward=reward, done=out.done, done_ret=done_ret)
             if self.priv_dim:     # symmetric: vobs is obs, stored once
                 step["vobs"] = vobs
             steps.append(step)
             obs = out.obs.to(self.dtype)
         traj = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
         ts = ts._replace(env_states=env_states, last_obs=obs, ep_ret=ep_ret,
-                         ep_len=ep_len, stat_sum_ret=stat_sum,
-                         stat_n_eps=stat_n)
+                         ep_len=ep_len)
+        if ts.mesh is None:
+            ts = self._add_episodes(ts, traj)
         return ts, traj
+
+    @staticmethod
+    def _add_episodes(ts, traj):
+        """ts with the episodes that ended in `traj` (its "done_ret",
+        popped, and "done") added to the stats, step by step."""
+        stat_sum, stat_n = ts.stat_sum_ret, ts.stat_n_eps
+        done_ret = traj.pop("done_ret")
+        for t in range(done_ret.shape[0]):
+            stat_sum = stat_sum + done_ret[t].sum()
+            stat_n = stat_n + traj["done"][t].sum()
+        return ts._replace(stat_sum_ret=stat_sum, stat_n_eps=stat_n)
+
+    def _gather(self, ts, traj):
+        """(traj, last value inputs) of every rank's envs, in one
+        collective; the trajectory's flags ride as the working dtype."""
+        last_vobs = self._vobs(ts.last_obs, ts.env_states)
+        keys = list(traj)
+        parts = [traj[k].to(self.dtype) if k == "done" else traj[k]
+                 for k in keys] + [last_vobs.unsqueeze(0)]
+        parts = mesh_lib.gather_rows(parts, ts.mesh, dim=1)
+        traj = dict(zip(keys, parts))
+        traj["done"] = traj["done"] != 0
+        return traj, parts[-1][0]
 
     # ------------------------------------------------------------- GAE
     @torch.no_grad()
-    def _gae(self, ts: TrainState, traj):
+    def _gae(self, ts: TrainState, traj, last_vobs=None):
+        """(advantages, returns); `last_vobs` (the critic's inputs after the
+        last step) defaults to the train state's."""
         cfg = self.cfg
-        next_val = ts.net.value(self._vobs(ts.last_obs, ts.env_states))
+        if last_vobs is None:
+            last_vobs = self._vobs(ts.last_obs, ts.env_states)
+        next_val = ts.net.value(last_vobs)
         gae = torch.zeros_like(next_val)
         adv = torch.empty_like(traj["value"])
         for t in reversed(range(cfg.n_steps)):
@@ -273,12 +349,18 @@ class PPO:
     # --------------------------------------------------------- iterate
     def iteration(self, ts: TrainState, timer=None):
         """One iteration: collect n_steps x n_envs transitions, then update.
-        `timer` (utils.profiling.Timer) times the "rollout" (with GAE) and
-        the "update" phases. Returns (ts, metrics of 0-dim tensors)."""
+        `timer` (utils.profiling.Timer) times the "rollout" (with GAE and,
+        with a mesh, the "gather" inside it) and the "update" phases.
+        Returns (ts, metrics of 0-dim tensors), the same on every rank."""
         phase = timer or (lambda name: contextlib.nullcontext())
         with phase("rollout"):
             ts, traj = self._rollout(ts)
-            adv, returns = self._gae(ts, traj)
+            last_vobs = None
+            if ts.mesh is not None:
+                with phase("gather"):
+                    traj, last_vobs = self._gather(ts, traj)
+                ts = self._add_episodes(ts, traj)
+            adv, returns = self._gae(ts, traj, last_vobs)
             # SB3's explained variance over the rollout's value predictions
             ev = explained_variance(returns, traj["value"])
         with phase("update"):

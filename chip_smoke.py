@@ -96,7 +96,24 @@ Phases, in order; any failure exits non-zero before the final line:
      episodes of at most 300 steps, block_delay 0.04, chunks of 50,
      through K2: the bank's invariants, and bank[0] restarted at t = 0 on
      a fresh generator for one finite K2 step.
-     `chip_smoke.off_policy_phase(modules)` runs phase 9 alone.
+     `chip_smoke.off_policy_phase(modules)` runs phase 9 alone;
+ 10. PPO data-parallel over ranks (`parallel/`), at phase 7a's config,
+     fast grade: (a) `distributed.initialize` with a file:// rendezvous,
+     a NCCL world of one rank, Env01-v2 for 2 iterations through the
+     sharded path (`mesh.shard_train_state`, one gather per iteration):
+     params, Adam moments, stats and metrics bit-equal to the unsharded
+     run of the same seed, K1 launched once per rollout step; rollout,
+     gather (and its bytes) and update ms by CUDA events; (b) two
+     processes of this script (--par-rank) on the one card over gloo,
+     2 x 512 envs: Env01-v2 in float64 (1 iteration) and float32 (2), and
+     Env03-v2 with the privileged critic warm-started from
+     models/Env01-v2_PPO (1, K2); each rank's launches counted, the
+     ranks' train states bit-equal to each other and to one process of
+     1024 envs; a rank that dies or does not finish in PAR_TIMEOUT_S
+     fails the script; (c) `utils/drift.py` on K1
+     (Env01-v2) and K2 (Env03-v2), 16 envs, 5 steps, seeds 0 and 1,
+     against float64 on the CPU, within its bounds. `chip_smoke.parallel_phase(modules)` runs
+     phase 10 alone.
 It ends with one JSON line per the contract: {"ok": true, "device": ...}.
 """
 
@@ -180,6 +197,21 @@ HARVEST_STEPS = 300
 HARVEST_CHUNK = 50
 HARVEST_DELAY = 0.04
 HARVEST_SEED = 3
+# phase 10: PPO over ranks at phase 7a's config, and the drift probe. 10a:
+# a NCCL world of one rank; 10b: PAR_RANKS processes on one card over gloo
+# (NCCL refuses two ranks on one card), PAR_ENVS envs in all, each case
+# (env, dtype, iterations, privileged critic) against one process; 10c:
+# `utils/drift.py` on DRIFT_BATCH envs
+PAR_ITERS = 2
+PAR_RANKS = 2
+PAR_ENVS = TRAIN_CONFIG["n_envs"]
+PAR_CASES = {"Env01-v2 float64": ("Env01-v2", torch.float64, 1, False),
+             "Env01-v2 float32": ("Env01-v2", torch.float32, 2, False),
+             "Env03-v2 privileged": ("Env03-v2", torch.float32, 1, True)}
+PAR_TIMEOUT_S = 300
+DRIFT_BATCH = 16
+DRIFT_STEPS = 5
+DRIFT_SEEDS = (0, 1)
 # phase 8: the CLI. The B = 1 serving loops on Env03-v2 and EnvMove05-v1
 # run max_steps + 201 steps unless the robot falls
 CLI_SERVE_STEPS = 300
@@ -1438,16 +1470,268 @@ def off_policy_phase(modules):
     print(f"off-policy: phase 9 in {time.perf_counter() - t9:.1f} s")
 
 
+# --------------------------------------------------------------- phase 10
+
+def _train_state_arrays(ts):
+    """{name: numpy} of what a replicated PPO run must agree on: the params
+    (the JAX layout), the Adam moments and steps, the episode stats."""
+    from balance_robot_tpu_torch.models import mlp
+    out = {f"params/{k}": v for k, v in mlp.to_numpy_params(ts.net).items()}
+    for name, p in ts.net.named_parameters():
+        for slot, value in ts.opt.state[p].items():
+            out[f"opt/{name}/{slot}"] = value.detach().cpu().numpy()
+    out["stat_sum_ret"] = ts.stat_sum_ret.cpu().numpy()
+    out["stat_n_eps"] = ts.stat_n_eps.cpu().numpy()
+    return out
+
+
+def _largest_gap(a, b):
+    """(max |a - b| over every array, the key where it is, keys equal)."""
+    if sorted(a) != sorted(b):
+        return float("inf"), "keys", False
+    gaps = {k: float(np.max(np.abs(a[k].astype(np.float64)
+                                   - b[k].astype(np.float64)), initial=0.0))
+            for k in a}
+    key = max(gaps, key=gaps.get)
+    return gaps[key], key, all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def parallel_case(name, mesh=None):
+    """One 10b case on this process's share of PAR_ENVS envs (all of them
+    without a mesh): (trainer, train state after PAR_CASES[name]'s
+    iterations)."""
+    import balance_robot_tpu_torch as brt
+    from balance_robot_tpu_torch.parallel import mesh as pm
+    from balance_robot_tpu_torch.train import checkpoint
+    from balance_robot_tpu_torch.train.ppo import PPO, PPOConfig
+    env_id, dtype, iters, privileged = PAR_CASES[name]
+    env = brt.make(env_id, dtype=dtype).use_fast_solver()
+    cfg = PPOConfig(**dict(TRAIN_CONFIG, n_envs=PAR_ENVS),
+                    privileged_critic=privileged)
+    ppo = PPO(env, cfg)
+    ts = ppo.init(0, params=checkpoint.load(POLICY) if privileged else None)
+    if mesh is not None:
+        ts = pm.shard_train_state(ts, mesh, cfg.n_envs)
+    for _ in range(iters):
+        ts, _ = ppo.iteration(ts)
+    torch.cuda.synchronize()
+    return ppo, ts
+
+
+def parallel_rank_main(rank, directory):
+    """A rank of 10b's two-process gloo world on cuda:0 (chip_smoke.py
+    --par-rank R --par-dir D): every case of PAR_CASES on its envs, the
+    kernels' launches counted per case; writes D/rank<R>.npz and .json.
+    Any failure exits nonzero."""
+    from balance_robot_tpu_torch.parallel import distributed
+    from balance_robot_tpu_torch.physics import cuda_block, cuda_move
+    from balance_robot_tpu_torch.physics import cuda_step
+    modules = {"K1": cuda_step, "K2": cuda_block, "K3": cuda_move}
+    for m in modules.values():
+        m.build()      # the parent built them: loads the libraries
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize(backend="gloo",
+                           init_method=f"file://{directory}/rendezvous",
+                           world_size=PAR_RANKS, rank=rank)
+    mesh = distributed.global_env_mesh()
+    arrays, facts = {}, {}
+    for name in PAR_CASES:
+        zero_counts(modules)
+        t0 = time.perf_counter()
+        _, ts = parallel_case(name, mesh)
+        facts[name] = dict(seconds=time.perf_counter() - t0,
+                           counts=counts_of(modules))
+        arrays.update({f"{name}/{k}": v
+                       for k, v in _train_state_arrays(ts).items()})
+        del ts
+    np.savez(pathlib.Path(directory) / f"rank{rank}.npz", **arrays)
+    (pathlib.Path(directory) / f"rank{rank}.json").write_text(
+        json.dumps(facts))
+    torch.distributed.destroy_process_group()
+
+
+def parallel_phase(modules):
+    """Phase 10: 10a, 10b and 10c (see the module docstring)."""
+    import balance_robot_tpu_torch as brt
+    from balance_robot_tpu_torch.parallel import distributed
+    from balance_robot_tpu_torch.parallel import mesh as pm
+    from balance_robot_tpu_torch.train.ppo import PPO, PPOConfig
+    from balance_robot_tpu_torch.utils import drift
+    from balance_robot_tpu_torch.utils.profiling import Timer
+
+    t10 = time.perf_counter()
+    build = pathlib.Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    cfg = PPOConfig(**TRAIN_CONFIG)
+    per_iter = cfg.n_envs * cfg.n_steps
+
+    # ---- 10a: a NCCL world of one rank, through the sharded path
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        distributed.initialize(init_method=f"file://{tmp}/rendezvous",
+                               world_size=1, rank=0)
+        check(torch.distributed.get_backend() == "nccl",
+              f"10a: backend {torch.distributed.get_backend()}")
+        mesh = distributed.global_env_mesh()
+        ppo = PPO(brt.make("Env01-v2").use_fast_solver(), cfg)
+        ts = ppo.init(0)
+        for _ in range(PAR_ITERS):
+            ts, metrics = ppo.iteration(ts)
+        plain = _train_state_arrays(ts)
+        sharded = PPO(brt.make("Env01-v2").use_fast_solver(), cfg)
+        ts = pm.shard_train_state(sharded.init(0), mesh, cfg.n_envs)
+        first, timer = Timer(), Timer()
+        moved = []        # bytes of each gather's buffer (world x local)
+
+        def gather_rows(tensors, mesh, dim=0):
+            moved.append(mesh.size * sum(t.numel() * t.element_size()
+                                         for t in tensors))
+            return gather(tensors, mesh, dim)
+
+        gather = pm.gather_rows
+        torch.cuda.synchronize()
+        zero_counts(modules)
+        with mock.patch.object(pm, "gather_rows", gather_rows):
+            for i in range(PAR_ITERS):
+                t = first if i == 0 else timer
+                with t("iteration"):
+                    ts, metrics_s = sharded.iteration(ts, timer=t)
+        torch.cuda.synchronize()
+        counts = counts_of(modules)
+        check(counts == {n: PAR_ITERS * cfg.n_steps * (n == "K1")
+                         for n in modules},
+              f"10a: the sharded run must launch K1 {PAR_ITERS * cfg.n_steps}"
+              f" times and no other kernel: {counts}")
+        check(len(moved) == PAR_ITERS,
+              f"10a: {len(moved)} gathers in {PAR_ITERS} iterations")
+        gap, key, equal = _largest_gap(plain, _train_state_arrays(ts))
+        check(equal and all(torch.equal(metrics[k], metrics_s[k])
+                            for k in metrics),
+              f"10a: the sharded run at world 1 departs from the unsharded "
+              f"one by {gap:.3e} ({key})")
+        torch.distributed.destroy_process_group()
+    del ppo, sharded, ts
+    rep, rep1 = timer.report(), first.report()
+    print(f"parallel 10a: NCCL world of 1, Env01-v2 {cfg.n_envs} envs x "
+          f"{cfg.n_steps} steps, {PAR_ITERS} iterations through the sharded "
+          f"path: params, Adam moments, stats and metrics bit-equal to the "
+          f"unsharded run ({len(plain)} arrays), K1 launches {counts['K1']};"
+          f" after the first: {rep['iteration']['mean_ms']:.1f} ms per "
+          f"iteration = rollout {rep['rollout']['mean_ms']:.1f} ms (the "
+          f"gather of {moved[-1]} bytes {rep['gather']['mean_ms']:.3f} ms "
+          f"inside it) + update {rep['update']['mean_ms']:.1f} ms, "
+          f"{per_iter / rep['iteration']['mean_ms'] * 1e3:.1f} training "
+          f"env-steps/s; the first {rep1['iteration']['mean_ms']:.1f} ms "
+          f"(gather {rep1['gather']['mean_ms']:.3f})")
+
+    # ---- 10b: two ranks on cuda:0 over gloo (NCCL refuses two ranks on
+    # one card), each with half of PAR_ENVS envs, against one process
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, str(pathlib.Path(__file__).resolve()),
+             "--par-rank", str(r), "--par-dir", tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(PAR_RANKS)]
+        try:
+            single = {}
+            zero_counts(modules)
+            for name in PAR_CASES:
+                _, ts = parallel_case(name)
+                single[name] = _train_state_arrays(ts)
+                del ts
+            single_counts = counts_of(modules)
+            for r, p in enumerate(procs):
+                try:
+                    _, err = p.communicate(timeout=PAR_TIMEOUT_S)
+                except subprocess.TimeoutExpired:
+                    fail(f"10b: rank {r} did not finish in {PAR_TIMEOUT_S} s")
+                check(p.returncode == 0,
+                      f"10b: rank {r} exited {p.returncode}:\n{err[-3000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        arrays = [dict(np.load(pathlib.Path(tmp) / f"rank{r}.npz"))
+                  for r in range(PAR_RANKS)]
+        facts = [json.loads((pathlib.Path(tmp) / f"rank{r}.json")
+                            .read_text()) for r in range(PAR_RANKS)]
+    seconds = time.perf_counter() - t0
+    n_local = PAR_ENVS // PAR_RANKS
+    for name, (env_id, dtype, iters, privileged) in PAR_CASES.items():
+        kernel = "K2" if env_id.startswith("Env03") else "K1"
+        want = {n: iters * cfg.n_steps * (n == kernel) for n in modules}
+        for r, f in enumerate(facts):
+            check(f[name]["counts"] == want,
+                  f"10b {name}: rank {r} must launch {kernel} "
+                  f"{want[kernel]} times at B = {n_local} and no other "
+                  f"kernel: {f[name]['counts']}")
+        ranks = [{k[len(name) + 1:]: v for k, v in a.items()
+                  if k.startswith(name + "/")} for a in arrays]
+        _, key, equal = _largest_gap(ranks[0], ranks[1])
+        check(equal, f"10b {name}: the ranks' train states differ ({key})")
+        gap, key, equal = _largest_gap(ranks[0], single[name])
+        # each env's chain in K1 and K2 is its own, their launch shape
+        # depends on the dtype alone, and the policy's products per row
+        # do not depend on the batch here: any gap is a finding (PERF.md)
+        check(equal, f"10b {name}: two ranks depart from one process by "
+              f"{gap:.3e} ({key})")
+        print(f"parallel 10b {name}: {env_id} {str(dtype)[6:]}"
+              f"{' privileged critic from ' + POLICY if privileged else ''}, "
+              f"{PAR_RANKS} x {n_local} envs over gloo on one card, {iters} "
+              f"iteration(s), {kernel} launches {want[kernel]} per rank at B "
+              f"= {n_local} (team, envs per block, shared bytes: "
+              f"{modules[kernel].launch_config(dtype)} at any B): the ranks' "
+              f"train states and one process's at B = {PAR_ENVS} bit-equal "
+              f"({len(ranks[0])} arrays); rank 0 took "
+              f"{facts[0][name]['seconds']:.2f} s")
+    print(f"parallel 10b: {seconds:.1f} s with the one-process runs "
+          f"({single_counts} launches at B = {PAR_ENVS})")
+
+    # ---- 10c: the drift probe of K1 and K2 against float64, within its
+    # bounds, on two draws
+    for env_id, kernel in (("Env01-v2", "K1"), ("Env03-v2", "K2")):
+        for seed in DRIFT_SEEDS:
+            zero_counts(modules)
+            t0 = time.perf_counter()
+            try:
+                d = drift.assert_drift_bounded(env_id, steps=DRIFT_STEPS,
+                                               batch=DRIFT_BATCH, seed=seed)
+            except AssertionError as e:
+                fail(f"10c: {e}")
+            counts = counts_of(modules)
+            check(counts == {n: DRIFT_STEPS * (n == kernel) for n in modules},
+                  f"10c {env_id}: the probe must launch {kernel} "
+                  f"{DRIFT_STEPS} times: {counts}")
+            print(f"parallel 10c drift {env_id} seed {seed} ({kernel} "
+                  f"float32 fast on the card vs float64 on the CPU, "
+                  f"{DRIFT_BATCH} envs, max |obs| per step): "
+                  + ", ".join(f"{x:.3e}" for x in d)
+                  + f"; bounds {drift.STEP1_BOUND[env_id]:.0e} at step 1, "
+                  f"{drift.STEP5_BOUND[env_id]:.0e} at step 5; "
+                  f"{time.perf_counter() - t0:.1f} s")
+    print(f"parallel: phase 10 in {time.perf_counter() - t10:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--serve03-steps", type=int, default=SERVE03_STEPS,
                     help="depth of the Env03-v2 serving episodes "
                          f"(full horizon {SERVE03_STEPS})")
+    ap.add_argument("--par-rank", type=int, default=None,
+                    help="run as rank R of phase 10b's world (the script "
+                         "starts these itself)")
+    ap.add_argument("--par-dir", default=None,
+                    help="phase 10b's rendezvous and output directory")
     opts = ap.parse_args()
 
     # ---- 1. device
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
+    if opts.par_rank is not None:
+        parallel_rank_main(opts.par_rank, opts.par_dir)
+        return
     card = nvidia_smi("name,power.limit")
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1880,6 +2164,8 @@ def main():
     cli_phase(modules)
     # ---- 9. the off-policy trainers and the harvest
     off_policy_phase(modules)
+    # ---- 10. data-parallel PPO over ranks, and the drift probe
+    parallel_phase(modules)
 
     static = {
         "K1": ("k1_control_step",

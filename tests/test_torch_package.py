@@ -46,7 +46,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"env03.py", "cuda_block.py", "kernel_build.py", "cuda_move.py",
             "move.py", "cal01.py", "quant.py", "pipeline.py", "cli.py",
             "onnx_writer.py", "onnx_runtime.py", "native_runtime.py",
-            "bc.py"} <= {p.name for p in PORT_FILES}
+            "bc.py", "offpolicy.py", "harvest.py", "distributed.py",
+            "mesh.py", "drift.py"} <= {p.name for p in PORT_FILES}
     for path in PORT_FILES:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
