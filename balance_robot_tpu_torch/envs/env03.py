@@ -255,10 +255,14 @@ class Env03V2(Env03V1):
     max_episode_steps = 1200
     block_delay = 0.5
     block_speed = 7.5
+    # P(a slot is attacked from the back): each slot draws one uniform when
+    # it is first reset and is attacked from the front where the draw
+    # exceeds it (`envs/hardened.py` changes it for training)
+    back_frac = 0.5
 
     def _init_aux(self, n):
         aux = super()._init_aux(n)
-        aux["attack_front"] = self._uniform(n) > 0.5
+        aux["attack_front"] = self._uniform(n) > self.back_frac
         return aux
 
     def carry_across_reset(self, old_state, new_state):

@@ -28,6 +28,11 @@ class PrivilegedObsEnv:
         # only reached for attributes not set on the wrapper itself
         return getattr(self._env, name)
 
+    def rewrap(self, env):
+        """The same view of another copy of the wrapped env (`train.ppo.
+        fork_env` and `shard_env`)."""
+        return PrivilegedObsEnv(env)
+
     def _aug(self, state, obs):
         return torch.cat((obs, self._env.privileged(state)), -1)
 

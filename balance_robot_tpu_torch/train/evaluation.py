@@ -41,12 +41,14 @@ class ChunkedEvaluator:
         self.chunk = int(chunk or self.CHUNK)
 
     @torch.no_grad()
-    def evaluate_detail(self, params, n_episodes, max_steps=None):
+    def evaluate_detail(self, params, n_episodes, max_steps=None,
+                        start=None):
         """Per-episode (returns, lengths) numpy arrays of n fresh episodes,
-        reset from the env's generator. Raises FloatingPointError when a
-        return is not finite (checked once, after the rollout)."""
+        reset from the env's generator, or from `start` = (states, obs) of
+        n episodes. Raises FloatingPointError when a return is not finite
+        (checked once, after the rollout)."""
         max_steps = max_steps or self.env.max_episode_steps
-        states, obs = self.env.reset(n_episodes)
+        states, obs = self.env.reset(n_episodes) if start is None else start
         dev = obs.device
         ret = torch.zeros(n_episodes, dtype=self.env.dtype, device=dev)
         done = torch.zeros(n_episodes, dtype=torch.bool, device=dev)

@@ -55,7 +55,6 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from ..envs.privileged import PrivilegedObsEnv
 from ..envs.vector import VecEnv
 from ..models import mlp
 from ..parallel import mesh as mesh_lib
@@ -101,9 +100,10 @@ class TrainState(NamedTuple):
 
 def fork_env(env, seed):
     """A copy of `env` (the same scene, solver grade and device) that draws
-    from a generator of its own, seeded with `seed`."""
-    if isinstance(env, PrivilegedObsEnv):
-        return PrivilegedObsEnv(fork_env(env._env, seed))
+    from a generator of its own, seeded with `seed`. A wrapper (one with
+    `rewrap`) wraps a fork of the env it wraps."""
+    if hasattr(env, "rewrap"):
+        return env.rewrap(fork_env(env._env, seed))
     twin = copy.copy(env)
     twin.generator = torch.Generator(device=env.device)
     twin.generator.manual_seed(seed)
@@ -114,8 +114,8 @@ def shard_env(env, rank, size):
     """A copy of `env` for rank `rank` of `size` that shares its generator
     and draws every batch of uniforms at the global batch, keeping its own
     rows."""
-    if isinstance(env, PrivilegedObsEnv):
-        return PrivilegedObsEnv(shard_env(env._env, rank, size))
+    if hasattr(env, "rewrap"):
+        return env.rewrap(shard_env(env._env, rank, size))
     twin = copy.copy(env)
     twin.shard = (rank, size)
     return twin

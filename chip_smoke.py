@@ -113,7 +113,33 @@ Phases, in order; any failure exits non-zero before the final line:
      fails the script; (c) `utils/drift.py` on K1
      (Env01-v2) and K2 (Env03-v2), 16 envs, 5 steps, seeds 0 and 1,
      against float64 on the CPU, within its bounds. `chip_smoke.parallel_phase(modules)` runs
-     phase 10 alone.
+     phase 10 alone;
+ 11. the flagship's selection workflow (`train/burst.py`, `sweep.py`,
+     `eval_policy.py`) through their `main(argv)`, from a temporary
+     directory under build/ with copies of the checkpoints, Env03-v2 at the
+     training grade through K2, each part's K2 launches counted and
+     printed: (a) the burst ratchet from models/Env03-v2_r2i at the JAX
+     tool's defaults (1024 envs x 32 steps, minibatch 1024, 10 epochs,
+     gamma 0.999, lr 5e-5), one burst of 2 iterations and 2 snapshots,
+     512-episode evals cut to SEL_STEPS_11A steps, `--confirm --min-win -1`
+     (a forced accept, so the confirm set and the pooled gate run): the
+     JAX tool's history schema, accepted or reverted by the gate,
+     best_model.npz read back bit for bit, ms per iteration (CUDA events)
+     and seconds per eval; (b) a hardened burst (survival reward, back_frac
+     0.7, block_delay 0.2, privileged critic, failure replay of 512
+     episodes at 0.25) of one iteration at the full 1200-step horizon: the
+     bank not empty, every rollout reward 1.0, the replayed share of the
+     resets and the front share of the plain slots within 3 standard
+     errors, and K2's first rollout launch (replayed bank states in its
+     batch) held to the plain version in float32 and float64; (c) the
+     paired eval of r2i at seed 0, 512 x 1200, bit-equal to 11b's first
+     eval (the same call), its full-horizon rate inside SEL_RATE_BAND, and
+     11a's snapshot at seed 0 resetting the same qpos; (d) the sweep of a
+     copy of models/Env03-v2_PPO (`--every 4`, 256 episodes) and the eval
+     of r2i (float and `--int8`, 512 episodes), both cut to SEL_STEPS_11D
+     steps, and the eval of models/Env01-v2_SAC on Env01-v2 (256 x 200,
+     K1), its survival within 3 standard errors of 9d's 0.8633.
+     `chip_smoke.selection_phase(modules)` runs phase 11 alone.
 It ends with one JSON line per the contract: {"ok": true, "device": ...}.
 """
 
@@ -212,6 +238,28 @@ PAR_TIMEOUT_S = 300
 DRIFT_BATCH = 16
 DRIFT_STEPS = 5
 DRIFT_SEEDS = (0, 1)
+# phase 11: the selection workflow (`train/burst.py`, `sweep.py`,
+# `eval_policy.py`) on Env03-v2 from POLICY03, through K2. The ratchet's
+# evals of SEL_EPISODES episodes (its default). 11b's and 11c's run the
+# full 1200 steps; 11a's ten and 11d's six are cut to 100 steps so that
+# the script stays near 900 s (a 512-episode eval costs 27 ms per step
+# on an H100, PERF.md)
+SEL_EPISODES = 512
+SEL_STEPS_11A = 100
+SEL_STEPS_11D = 100
+SEL_SWEEP_EPISODES = 256
+SWEEP_RUN = "models/Env03-v2_PPO"
+SEL_SNAP_STEPS = 50
+REPLAY_FRAC = 0.25
+BACK_FRAC = 0.7
+# r2i's full-horizon rate at 512 fast episodes in the JAX package: 84.0%
+# and 89.8% (runs/burst_r5a.log, primary and confirm sets of
+# models/Env03-v2_PPO, the same bytes), 86.5% (runs/burst_r2j.log), widened
+# by 3 standard errors
+SEL_RATE_BAND = (0.795, 0.943)
+# 9d's survival of models/Env01-v2_SAC, 256 x 200, fast grade, on an
+# H100 (PERF.md)
+SAC_SURVIVAL_9D = 0.8633
 # phase 8: the CLI. The B = 1 serving loops on Env03-v2 and EnvMove05-v1
 # run max_steps + 201 steps unless the robot falls
 CLI_SERVE_STEPS = 300
@@ -1714,6 +1762,371 @@ def parallel_phase(modules):
     print(f"parallel: phase 10 in {time.perf_counter() - t10:.1f} s")
 
 
+# --------------------------------------------------------------- phase 11
+
+@contextlib.contextmanager
+def short_horizon(steps):
+    """Every env that `brt.make` builds while the block runs has a horizon
+    of `steps` control steps (the workflow's own `make` calls included),
+    as tests/test_burst_gate.py cuts the JAX tool's."""
+    import balance_robot_tpu_torch as brt
+    make = brt.make
+
+    def cut(env_id, **kwargs):
+        env = make(env_id, **kwargs)
+        env.max_episode_steps = steps
+        return env
+
+    with mock.patch.object(brt, "make", cut):
+        yield
+
+
+@contextlib.contextmanager
+def workflow_spies(modules, kernel="K2"):
+    """While the block runs, every paired eval and harvest of the workflow
+    is timed by the host clock around a sync, every PPO iteration by CUDA
+    events (`utils/profiling.Timer`: iteration, rollout, update), and each
+    one's launches of `kernel` are counted. Yields {"evals": [...],
+    "harvests": [...], "iterations": [...]}, one dict per call (its
+    seconds or ms, its launches, and an eval's or a harvest's result)."""
+    from balance_robot_tpu_torch.train import harvest, selection
+    from balance_robot_tpu_torch.train.ppo import PPO
+    from balance_robot_tpu_torch.utils.profiling import Timer
+    log = {"evals": [], "harvests": [], "iterations": []}
+
+    def timed(kind, fn):
+        def spy(*args, **kwargs):
+            torch.cuda.synchronize()
+            before, t0 = modules[kernel].launches, time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            log[kind].append(dict(seconds=time.perf_counter() - t0, out=out,
+                                  launches=modules[kernel].launches - before))
+            return out
+        return spy
+
+    iteration = PPO.iteration
+
+    def timed_iteration(self, ts, timer=None):
+        t, before = Timer(), modules[kernel].launches
+        with t("iteration"):
+            out = iteration(self, ts, timer=t)
+        log["iterations"].append(dict(
+            launches=modules[kernel].launches - before,
+            **{k: v["mean_ms"] for k, v in t.report().items()}))
+        return out
+
+    with mock.patch.object(selection, "paired_eval",
+                           timed("evals", selection.paired_eval)), \
+            mock.patch.object(harvest, "harvest_fatal_states",
+                              timed("harvests",
+                                    harvest.harvest_fatal_states)), \
+            mock.patch.object(PPO, "iteration", timed_iteration):
+        yield log
+
+
+def check_eval_launches(what, log, horizon):
+    """Each eval launched K2 once per step of its horizon, or ended early
+    with every episode done."""
+    for e in log["evals"]:
+        lens = e["out"][4]
+        check(e["launches"] == horizon or (
+            e["launches"] < horizon and lens.max() <= e["launches"]),
+            f"{what}: an eval of horizon {horizon} launched K2 "
+            f"{e['launches']} times (longest episode {lens.max()})")
+
+
+def report_workflow(what, log, counts):
+    """Print a run's K2 launches by part, the ms per PPO iteration and the
+    seconds of each eval and harvest."""
+    its, evs, hvs = log["iterations"], log["evals"], log["harvests"]
+    n_it, n_ev, n_hv = (sum(x["launches"] for x in part)
+                        for part in (its, evs, hvs))
+    check(counts["K1"] == counts["K3"] == 0
+          and counts["K2"] == n_it + n_ev + n_hv,
+          f"{what}: K2 only, {n_it} in the rollouts + {n_ev} in the evals "
+          f"+ {n_hv} in the harvests: {counts}")
+    line = (f"{what}: K2 launches {counts['K2']} = rollouts {n_it} + evals "
+            f"{n_ev} ({len(evs)} evals) + harvests {n_hv}")
+    if its:
+        line += "; ms per iteration (CUDA events) " + ", ".join(
+            f"{x['iteration']:.1f} = rollout {x['rollout']:.1f} + update "
+            f"{x['update']:.1f}" for x in its)
+    if evs:
+        line += "; s per eval " + ", ".join(f"{x['seconds']:.2f}"
+                                             for x in evs)
+    if hvs:
+        line += "; s per harvest " + ", ".join(f"{x['seconds']:.2f}"
+                                                for x in hvs)
+    print(line)
+
+
+def check_history(what, hist, n_rows, confirm):
+    """burst_history.json in the JAX tool's schema."""
+    best = hist["best"]
+    check(set(hist) == {"best", "history", "accepted", "min_win"}
+          and {"score", "ret", "src"} <= set(best)
+          and ({"cscore"} <= set(best)) == confirm
+          and len(hist["history"]) == n_rows
+          and all({"burst", "steps", "lr", "full", "ret", "len"} <= set(r)
+                  for r in hist["history"]),
+          f"{what}: burst_history.json departs from the JAX tool's "
+          f"schema: {hist}")
+
+
+def selection_11a(modules, tmp):
+    """11a: the ratchet at the flagship's training width, one burst of two
+    iterations and two snapshots, the accept forced so that the confirm
+    set and the pooled gate run, the evals cut to SEL_STEPS_11A."""
+    from balance_robot_tpu_torch.train import burst, checkpoint
+    zero_counts(modules)
+    t0 = time.perf_counter()
+    with short_horizon(SEL_STEPS_11A), workflow_spies(modules) as log:
+        res = burst.main([
+            "--init", str(tmp / "r2i.npz"), "--out", str(tmp / "11a"),
+            "--bursts", "1", "--burst-steps", "65536",
+            "--snap-steps", "32768", "--eval-episodes", str(SEL_EPISODES),
+            "--confirm", "--min-win", "-1", "--seed", "0",
+            "--device", "cuda"])
+    seconds = time.perf_counter() - t0
+    counts = counts_of(modules)
+    hist = json.loads((tmp / "11a" / "burst_history.json").read_text())
+    check_history("11a", hist, 2, True)
+    best = hist["best"]
+    check((hist["accepted"] and best["src"].startswith("burst0@"))
+          or best.get("reverted_by_gate") is True,
+          f"11a: neither accepted nor reverted by the gate: {best}")
+    check(set(best["pooled"]) == {"incumbent", "winner"}
+          and len(log["evals"]) == 10 and len(log["iterations"]) == 2
+          and all(x["launches"] == 32 for x in log["iterations"]),
+          f"11a: {len(log['evals'])} evals (1 + 1 + 2 + 2 + 4 expected), "
+          f"iterations {log['iterations']}, pooled {best.get('pooled')}")
+    check_eval_launches("11a", log, SEL_STEPS_11A)
+    saved = checkpoint.load(tmp / "11a" / "best_model.npz")
+    check(set(saved) == set(res["params"]) and all(
+        np.array_equal(saved[k], res["params"][k]) for k in saved),
+        "11a: best_model.npz does not load back bit for bit")
+    report_workflow("selection 11a", log, counts)
+    print(f"selection 11a: burst.main on Env03-v2 from {POLICY03}, 1024 "
+          f"envs x 32 steps, 2 iterations, 2 snapshots, {SEL_EPISODES} "
+          f"episodes per eval of {SEL_STEPS_11A} steps, --confirm "
+          f"--min-win -1, in {seconds:.1f} s: accepted {hist['accepted']}, "
+          f"best {best}; best_model.npz read back bit for bit")
+    return res
+
+
+def selection_11b(modules, tmp):
+    """11b: the hardened burst with failure replay and the privileged
+    critic at the full horizon; every rollout reward 1.0, the replayed and
+    front shares, and K2's first rollout launch (replayed bank states in
+    its batch) held to the plain version."""
+    from balance_robot_tpu_torch.envs.vector import VecEnv
+    from balance_robot_tpu_torch.train import burst
+    rewards, first, kept = [], {}, []
+    step, reset = VecEnv.step, VecEnv.reset
+
+    def step_spy(self, states, actions, uniforms=None):
+        if rewards:
+            out = step(self, states, actions, uniforms)
+        else:
+            with inputs_of_launch(modules, "K2", 0) as k:
+                out = step(self, states, actions, uniforms)
+            kept.extend(k)
+        rewards.append(out[1].reward)
+        return out
+
+    def reset_spy(self):
+        states, obs = reset(self)
+        first.update(env=self.env, aux=states.aux)
+        return states, obs
+
+    zero_counts(modules)
+    t0 = time.perf_counter()
+    with workflow_spies(modules) as log, \
+            mock.patch.object(VecEnv, "step", step_spy), \
+            mock.patch.object(VecEnv, "reset", reset_spy):
+        res = burst.main([
+            "--init", str(tmp / "r2i.npz"), "--out", str(tmp / "11b"),
+            "--bursts", "1", "--burst-steps", "32768",
+            "--snap-steps", "32768", "--eval-episodes", str(SEL_EPISODES),
+            "--failure-replay", str(SEL_EPISODES),
+            "--replay-frac", str(REPLAY_FRAC), "--survival-reward",
+            "--train-back-frac", str(BACK_FRAC), "--train-block-delay",
+            "0.2", "--privileged-critic", "--seed", "0", "--device", "cuda"])
+    seconds = time.perf_counter() - t0
+    counts = counts_of(modules)
+    hist = json.loads((tmp / "11b" / "burst_history.json").read_text())
+    check_history("11b", hist, 1, False)
+    check(len(log["evals"]) == 2 and len(log["harvests"]) == 1,
+          f"11b: {len(log['evals'])} evals, {len(log['harvests'])} harvests")
+    check_eval_launches("11b", log, 1200)
+    n_bank = res["banks"]
+    check(len(n_bank) == 1 and n_bank[0] > 0,
+          f"11b: the failure-replay bank is empty: {n_bank}")
+    r = torch.stack(rewards)
+    check(r.shape == (32, 1024) and bool((r == 1.0).all()),
+          f"11b: rollout rewards other than 1.0 (min {r.min().item()}, "
+          f"max {r.max().item()}) over {tuple(r.shape)}")
+    wrap, aux = first["env"], first["aux"]
+    n, n_rep = wrap.resets, int(wrap.replayed)
+    se = (REPLAY_FRAC * (1 - REPLAY_FRAC) / n) ** 0.5
+    check(abs(n_rep / n - REPLAY_FRAC) <= 3 * se,
+          f"11b: {n_rep} of {n} resets replayed, {n_rep / n:.4f} against "
+          f"{REPLAY_FRAC} +- 3 x {se:.4f}")
+    plain = ~aux["replayed"]
+    n_plain = int(plain.sum())
+    front = aux["attack_front"][plain].double().mean().item()
+    se_f = (BACK_FRAC * (1 - BACK_FRAC) / n_plain) ** 0.5
+    check(abs(front - (1 - BACK_FRAC)) <= 3 * se_f,
+          f"11b: {front:.4f} of {n_plain} plain slots attacked from the "
+          f"front, against {1 - BACK_FRAC} +- 3 x {se_f:.4f}")
+    report_workflow("selection 11b", log, counts)
+    print(f"selection 11b: hardened burst (survival reward, back_frac "
+          f"{BACK_FRAC}, block_delay 0.2, privileged critic, failure "
+          f"replay {SEL_EPISODES} at {REPLAY_FRAC}) from {POLICY03}, 1 "
+          f"iteration, full 1200-step horizon, in {seconds:.1f} s: bank "
+          f"{n_bank[0]} states; every one of {r.numel()} rollout rewards "
+          f"1.0; {n_rep} of {n} resets replayed ({n_rep / n:.4f}, s.e. "
+          f"{se:.4f}); {front:.4f} of the {n_plain} plain slots attacked "
+          f"from the front (s.e. {se_f:.4f}); {int(aux['replayed'].sum())} "
+          "replayed rows in the first rollout step's batch")
+    hold_on_path(modules, "K2", "11b's first rollout step (replayed bank "
+                 "states)", kept)
+    return log["evals"][0]["out"]
+
+
+def selection_11c(modules, tmp, first, snapshot):
+    """11c: the paired eval of r2i at seed 0 again, bit-equal to 11b's
+    first (the same call); another policy at seed 0 resets the same
+    episodes."""
+    import balance_robot_tpu_torch as brt
+    from balance_robot_tpu_torch.train import checkpoint, selection
+    env = brt.make("Env03-v2").use_fast_solver()
+    starts = []
+
+    def keep(states, obs):
+        starts.append(states.phys.qpos.clone())
+
+    zero_counts(modules)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = selection.paired_eval(
+        *selection.act_fn_for(checkpoint.load(tmp / "r2i.npz"), env), 0,
+        SEL_EPISODES, on_start=keep)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    n_eval = modules["K2"].launches
+    check(np.array_equal(again[3], first[3])
+          and np.array_equal(again[4], first[4]),
+          "11c: two paired evals of r2i at seed 0 are not bit-equal "
+          f"(full {first[0]} and {again[0]})")
+    rate = again[0]
+    se = (rate * (1 - rate) / SEL_EPISODES) ** 0.5
+    check(SEL_RATE_BAND[0] <= rate <= SEL_RATE_BAND[1],
+          f"11c: r2i's full-horizon rate {rate:.4f} outside "
+          f"{SEL_RATE_BAND}")
+    selection.paired_eval(*selection.act_fn_for(snapshot, env), 0,
+                          SEL_EPISODES, SEL_SNAP_STEPS, on_start=keep)
+    counts = counts_of(modules)
+    check(torch.equal(starts[0], starts[1]),
+          "11c: another policy at seed 0 saw other resets")
+    check(counts == {"K1": 0, "K2": n_eval + SEL_SNAP_STEPS, "K3": 0},
+          f"11c: K2 only, {n_eval} + {SEL_SNAP_STEPS}: {counts}")
+    print(f"selection 11c: paired_eval of {POLICY03} at seed 0, "
+          f"{SEL_EPISODES} x 1200, in {seconds:.1f} s with {n_eval} K2 "
+          f"launches: returns and lengths bit-equal to 11b's first eval; "
+          f"full-horizon rate {rate:.4f} (s.e. {se:.4f}; band "
+          f"{SEL_RATE_BAND}), mean return {again[1]:.2f}, mean length "
+          f"{again[2]:.1f}; 11a's snapshot at seed 0 ({SEL_SNAP_STEPS} "
+          "steps) reset the same qpos bit for bit")
+
+
+def selection_11d(modules, tmp):
+    """11d: the sweep of a copy of models/Env03-v2_PPO and the large eval
+    of r2i (float and int8), both cut to SEL_STEPS_11D, and of the
+    committed Env01-v2 SAC at 256 x 200 (K1)."""
+    from balance_robot_tpu_torch.train import eval_policy, sweep
+
+    def run(what, fn, argv, steps, kernel):
+        zero_counts(modules)
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with short_horizon(steps), contextlib.redirect_stdout(buf):
+            out = fn(argv + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = counts_of(modules)
+        check(counts[kernel] > 0 and all(
+            v == 0 for k, v in counts.items() if k != kernel),
+            f"{what}: {kernel} only: {counts}")
+        lines = buf.getvalue().splitlines()
+        print(f"selection {what} in {seconds:.1f} s, {counts[kernel]} "
+              f"{kernel} launches:\n  " + "\n  ".join(lines))
+        return out, lines
+
+    rows, _ = run("11d sweep", sweep.main, [
+        str(tmp / "Env03-v2_PPO"), "--every", "4", "--episodes",
+        str(SEL_SWEEP_EPISODES), "--out", str(tmp / "sweep.json")],
+        SEL_STEPS_11D, "K2")
+    keys = [(r["full_horizon"], r["mean_len"]) for r in rows]
+    check([r["ckpt"] for r in rows if r["ckpt"].startswith("cp_")]
+          == ["cp_4063232.npz"] and len(rows) == 4
+          and keys == sorted(keys, reverse=True)
+          and json.loads((tmp / "sweep.json").read_text()) == rows,
+          f"11d: the sweep's rows: {rows}")
+    for extra in ([], ["--int8"]):
+        (ret, lens, p0), lines = run(
+            f"11d eval_policy{' --int8' if extra else ''}",
+            eval_policy.main, [str(tmp / "r2i.npz"), "--env", "Env03-v2",
+                               "--episodes", str(SEL_EPISODES)] + extra,
+            SEL_STEPS_11D, "K2")
+        check(ret.shape == lens.shape == p0.shape == (SEL_EPISODES,)
+              and np.isfinite(ret).all() and np.isfinite(p0).all()
+              and any(line.strip().startswith("all ") for line in lines),
+              f"11d: eval_policy {extra}: {lines}")
+    (ret, lens, _), _ = run("11d eval_policy SAC", eval_policy.main, [
+        str(tmp / "sac.npz"), "--env", "Env01-v2", "--episodes",
+        str(SERVE_EPISODES)], SERVE_STEPS, "K1")
+    survival = float((lens >= SERVE_STEPS).mean())
+    se = (2 * SAC_SURVIVAL_9D * (1 - SAC_SURVIVAL_9D)
+          / SERVE_EPISODES) ** 0.5
+    check(abs(survival - SAC_SURVIVAL_9D) <= 3 * se,
+          f"11d: SAC survival {survival:.4f} against 9d's "
+          f"{SAC_SURVIVAL_9D} +- 3 x {se:.4f}")
+    print(f"selection 11d: {OFF_SERVED['SAC']} survival {survival:.4f} of "
+          f"{SERVE_EPISODES} x {SERVE_STEPS} (exact grade), 9d's "
+          f"{SAC_SURVIVAL_9D} +- 3 x {se:.4f} (the two draws' s.e.)")
+
+
+def selection_phase(modules):
+    """Phase 11: 11a-11d (see the module docstring), from a temporary
+    directory under build/ with copies of the checkpoints; the repo's
+    models/, logs/ and movies/ must be as they were."""
+    root = pathlib.Path(__file__).resolve().parent
+    guarded = {d: _files(root / d) for d in ("models", "logs", "movies")}
+    build = root / "build"
+    build.mkdir(exist_ok=True)
+    t11 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        tmp = pathlib.Path(tmp)
+        shutil.copy(root / POLICY03, tmp / "r2i.npz")
+        shutil.copy(root / OFF_SERVED["SAC"], tmp / "sac.npz")
+        (tmp / "Env03-v2_PPO").mkdir()
+        for f in (root / SWEEP_RUN).glob("*.npz"):
+            if f.name.startswith("cp_") or f.stem in (
+                    "best_model", "longest_model", "final_model"):
+                shutil.copy(f, tmp / "Env03-v2_PPO")
+        res = selection_11a(modules, tmp)
+        first = selection_11b(modules, tmp)
+        selection_11c(modules, tmp, first, res["snapshots"][-1][1])
+        selection_11d(modules, tmp)
+    after = {d: _files(root / d) for d in guarded}
+    check(after == guarded, "phase 11 wrote into the repo's models/, logs/ "
+          "or movies/")
+    print(f"selection: phase 11 in {time.perf_counter() - t11:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--serve03-steps", type=int, default=SERVE03_STEPS,
@@ -2166,6 +2579,9 @@ def main():
     off_policy_phase(modules)
     # ---- 10. data-parallel PPO over ranks, and the drift probe
     parallel_phase(modules)
+    # ---- 11. the selection workflow: the burst ratchet, the sweep, the
+    # large eval (autograd on for the ratchet's PPO)
+    selection_phase(modules)
 
     static = {
         "K1": ("k1_control_step",

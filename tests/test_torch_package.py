@@ -47,7 +47,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "move.py", "cal01.py", "quant.py", "pipeline.py", "cli.py",
             "onnx_writer.py", "onnx_runtime.py", "native_runtime.py",
             "bc.py", "offpolicy.py", "harvest.py", "distributed.py",
-            "mesh.py", "drift.py"} <= {p.name for p in PORT_FILES}
+            "mesh.py", "drift.py", "hardened.py", "selection.py",
+            "burst.py", "sweep.py", "eval_policy.py"} <= {
+                p.name for p in PORT_FILES}
     for path in PORT_FILES:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
