@@ -33,6 +33,22 @@ CONTROL_DT = 0.005
 TERMINATE_PITCH = 50.0 * math.pi / 180.0
 
 
+_CONSTANTS = {}
+
+
+def device_constant(name, values, device, dtype):
+    """`values` as a tensor on `device` in `dtype`, made once per (name,
+    device, dtype) and kept. A step that built it anew would copy it from
+    the host, and a blocking host-to-device copy makes the host wait until
+    the card has run every launch queued before it."""
+    key = (name, torch.device(device), dtype)
+    if key not in _CONSTANTS:
+        # a normal tensor even where the first caller is in inference mode
+        with torch.inference_mode(False):
+            _CONSTANTS[key] = torch.tensor(values, dtype=dtype, device=device)
+    return _CONSTANTS[key]
+
+
 class EnvState(NamedTuple):
     phys: PhysState
     t: torch.Tensor                   # (B,) int32 control steps this episode

@@ -191,8 +191,8 @@ class Env03V1(Env01V1):
         started = state.aux["delay_started"]
         # 1) park the block when it is slow and no respawn is pending
         park = (speed < 0.1) & ~started
-        park_pos = torch.tensor(PARK_POS, dtype=qpos.dtype,
-                                device=qpos.device)
+        park_pos = base.device_constant("PARK_POS", PARK_POS, qpos.device,
+                                        qpos.dtype)
         qpos = torch.cat((qpos[:, :9],
                           torch.where(park.unsqueeze(-1), park_pos,
                                       qpos[:, 9:12]), qpos[:, 12:]), -1)

@@ -69,9 +69,8 @@ def raycast(origin, dirs):
     t_floor = (FLOOR_Z - origin[:, None, 2]) / _away_from_zero(dz, 1e-12)
     t_all = [torch.where((dz.abs() > 1e-12) & (t_floor > 0), t_floor, inf)]
     inv = 1.0 / _away_from_zero(dirs, 1e-12)
-    for center, half in WALLS:
-        c = torch.tensor(center, dtype=dirs.dtype, device=dirs.device)
-        h = torch.tensor(half, dtype=dirs.dtype, device=dirs.device)
+    walls = base.device_constant("WALLS", WALLS, dirs.device, dirs.dtype)
+    for c, h in walls:
         t1 = ((c - h) - origin).unsqueeze(1) * inv
         t2 = ((c + h) - origin).unsqueeze(1) * inv
         tmin = torch.minimum(t1, t2).max(-1).values
@@ -90,7 +89,8 @@ def lidar_distances(qpos):
     n = q.square().sum(-1, keepdim=True).sqrt().clamp_min(1e-30)
     R = qmat(q / n)
     origin = qpos[:, 0:3] + R[:, :, 2] * LIDAR_HEIGHT
-    local = torch.tensor(RAY_DIRS_LOCAL, dtype=qpos.dtype, device=qpos.device)
+    local = base.device_constant("RAY_DIRS_LOCAL", RAY_DIRS_LOCAL,
+                                 qpos.device, qpos.dtype)
     dirs = local @ R.transpose(-1, -2)
     dist = raycast(origin, dirs)
     dist = torch.where(dist > LIDAR_RANGE, torch.zeros_like(dist), dist)

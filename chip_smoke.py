@@ -15,7 +15,9 @@ Phases, in order; any failure exits non-zero before the final line:
      states on which every wall collider must have been active, at B = 257
      and at a ragged batch above its crossover (its two instantiations;
      float32 against the plain version in float64, see K3_F32_TOL; a
-     second launch must give the same bits);
+     second launch must give the same bits); K1 and K2 also at the turbo
+     grade (Newton 2 / line search 4, `train_run --solver turbo`) on their
+     fast cases' states, in float64 and float32;
   4. main paths at 4096 envs, 25 control steps, the checked-in PPO policies
      (forward + sample), fast solver: Env01-v2 must launch K1, Env03-v2 K2
      and EnvMove05-v1 (with its int8 inner policy inside every step) K3,
@@ -27,7 +29,9 @@ Phases, in order; any failure exits non-zero before the final line:
      Env03-v1-fail steps; 2 x 256 fresh EnvMove05-v1 episodes over the full
      700-step horizon at the fast and at the exact grade, held to the JAX
      package's float32 return (see RETURN_MOVE_JAX), a few Cal01 steps, and
-     the int8 inner policy on the card against exact integer arithmetic;
+     the int8 inner policy on the card against exact integer arithmetic
+     (torch's CPU int8 path beside it, with its own tanh and with the
+     card's check's one tanh);
   6. times: K1, K2 and K3 and their plain versions at B = 4096 on the main
      paths' states, against each kernel's bound; K3 with every env at a wall
      at B = 4096 and 512; K1 at B = 256 (Env01 serving's batch), K2 at
@@ -139,7 +143,37 @@ Phases, in order; any failure exits non-zero before the final line:
      of r2i (float and `--int8`, 512 episodes), both cut to SEL_STEPS_11D
      steps, and the eval of models/Env01-v2_SAC on Env01-v2 (256 x 200,
      K1), its survival within 3 standard errors of 9d's 0.8633.
-     `chip_smoke.selection_phase(modules)` runs phase 11 alone.
+     `chip_smoke.selection_phase(modules)` runs phase 11 alone;
+ 12. the run drivers, the PPO profiler and round 4's teacher-student
+     recipe (`train/train_run.py`, `train_offpolicy.py`,
+     `profile_train.py`, `widen_policy.py`, `distill_teacher.py`) through
+     their `main(argv)`, from a temporary working directory under build/
+     with copies of the checkpoints, each part's launches counted:
+     (a) `train_run Env03-v2 --privileged-actor --init <r2i> --gamma 0.999
+     --lr 1e-4` (a teacher, round 4's settings) for 2 iterations at the
+     defaults (1024 envs x 32 steps), the runner's evals cut to
+     RUNNER_EVAL_STEPS: 32 K2 launches per iteration, the padded actor's
+     mean on [obs, priv] bit-equal to r2i's on obs before the first update,
+     the privileged rows of pi_w1 nonzero after it, the run's params with
+     14 inputs; then `Env01-v2 --solver turbo` for 1 iteration, 32 K1
+     launches at Newton 2 / line search 4; (b) `train_offpolicy SAC
+     Env01-v2` at the tool's defaults (64 envs, 8 updates per iteration,
+     batch 256, a 1e6-row buffer, learning_starts 10,000) until 20
+     iterations past learning_starts: no update before, exactly 8 per
+     iteration after, collect and update ms by CUDA events; (c)
+     `profile_train` at its defaults with `--reps 2 --trace`: its lines,
+     the traced iteration's kernels and busy share per phase, and the
+     update's ten largest kernels; (d) `widen_policy <r2i> --env Env03-v2
+     --priv --hidden 256`: the tool's exactness check on the card, the
+     file loads; (e) `distill_teacher --teacher
+     models/Env03-v2_teacher/best_model.npz --init <r2i> --iters 2
+     --eval-every 2` at the defaults (1024 envs, 64 collect steps, mb
+     4096), the two evals cut to DISTILL_EVAL_STEPS: 64 K2 launches per
+     collect, beta 1 then 0, the buffer at 65,536 then 131,072 rows, the
+     teacher's labels at the first collect's 33rd step within 1e-5 of its
+     float64 mean on the CPU, that step's K2 inputs held to the plain
+     version (`hold_on_path`), best_model.npz with 6 inputs.
+     `chip_smoke.tools_phase(modules)` runs phase 12 alone.
 It ends with one JSON line per the contract: {"ok": true, "device": ...}.
 """
 
@@ -257,6 +291,17 @@ BACK_FRAC = 0.7
 # models/Env03-v2_PPO, the same bytes), 86.5% (runs/burst_r2j.log), widened
 # by 3 standard errors
 SEL_RATE_BAND = (0.795, 0.943)
+# phase 12: the run drivers, the profiler and round 4's teacher-student
+# recipe through their main(argv). The runner's evals in 12a are cut to
+# RUNNER_EVAL_STEPS steps and the distillation's two evals in 12e to
+# DISTILL_EVAL_STEPS; 12b runs SAC at the tool's defaults until
+# OFF_ITERS_PAST_STARTS iterations past learning_starts; 12e keeps the
+# inputs of the first collect's K2 launch number HOLD_STEP_12E (from 0)
+TEACHER03 = "models/Env03-v2_teacher/best_model.npz"
+RUNNER_EVAL_STEPS = 20
+DISTILL_EVAL_STEPS = 100
+OFF_ITERS_PAST_STARTS = 20
+HOLD_STEP_12E = 32
 # 9d's survival of models/Env01-v2_SAC, 256 x 200, fast grade, on an
 # H100 (PERF.md)
 SAC_SURVIVAL_9D = 0.8633
@@ -2127,6 +2172,363 @@ def selection_phase(modules):
     print(f"selection: phase 11 in {time.perf_counter() - t11:.1f} s")
 
 
+
+# --------------------------------------------------------------- phase 12
+
+def run_main(what, fn, argv):
+    """`fn(argv + ["--device", "cuda"])` (a module's `main`) with its
+    standard output captured; prints its lines. Returns (result, lines,
+    seconds by the host clock around a sync)."""
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    print(f"tools {what} in {seconds:.1f} s:\n  " + "\n  ".join(lines))
+    return out, lines, seconds
+
+
+@contextlib.contextmanager
+def grades_of(modules, kernel):
+    """While the block runs, the (newton_iters, ls_iters) of every launch
+    of `kernel` through its wrapper go into the yielded set."""
+    module, name = modules[kernel], WRAPPERS[kernel][0]
+    launch = getattr(module, name)
+    seen = set()
+
+    def spy(*args, **kwargs):
+        params = args[5 if kernel == "K1" else 4]
+        seen.add((params.newton_iters, params.ls_iters))
+        return launch(*args, **kwargs)
+
+    with mock.patch.object(module, name, spy):
+        yield seen
+
+
+def tools_12a(modules, tmp):
+    """12a: `train_run` trains a teacher (round 4's settings) from r2i, 2
+    iterations at the defaults, the runner's evals cut to RUNNER_EVAL_STEPS
+    steps; then Env01-v2 at the turbo grade for 1 iteration."""
+    from balance_robot_tpu_torch.models import mlp
+    from balance_robot_tpu_torch.train import checkpoint, train_run
+    from balance_robot_tpu_torch.train.ppo import PPO
+    r2i = mlp.from_numpy_params(checkpoint.load(tmp / "r2i.npz"),
+                                device="cuda")
+    seen = {}
+    iteration = PPO.iteration
+
+    def watched(self, ts, timer=None):
+        if "gap" not in seen:          # before the first update
+            with torch.no_grad():
+                padded = ts.net.policy_mean(ts.last_obs)
+                base = r2i.policy_mean(ts.last_obs[:, :6])
+            seen.update(equal=torch.equal(padded, base),
+                        gap=(padded - base).abs().max().item(),
+                        obs=tuple(ts.last_obs.shape))
+        out = iteration(self, ts, timer=timer)
+        seen.setdefault("rows", out[0].net.pi_l1.weight[:, 6:].abs().max()
+                        .item())
+        return out
+
+    zero_counts(modules)
+    with mock.patch.object(PPO, "iteration", watched), \
+            short_horizon(RUNNER_EVAL_STEPS), \
+            workflow_spies(modules) as log:
+        _, lines, seconds = run_main("12a train_run teacher", train_run.main, [
+            "Env03-v2", "--privileged-actor", "--init", str(tmp / "r2i.npz"),
+            "--gamma", "0.999", "--lr", "1e-4", "--max-steps", "65536",
+            "--eval-freq", "65536", "--run-name", "teacher"])
+    counts = counts_of(modules)
+    its = log["iterations"]
+    check(len(its) == 2 and all(x["launches"] == 32 for x in its)
+          and counts["K1"] == counts["K3"] == 0,
+          f"12a: 2 iterations of 32 K2 launches each: {its}, {counts}")
+    check(seen["obs"] == (1024, 14) and seen["equal"],
+          f"12a: the padded actor's mean on [obs, priv] departs from r2i's "
+          f"on obs by {seen['gap']:.3e} ({seen['obs']})")
+    check(seen["rows"] > 0, "12a: the privileged rows of pi_w1 are still "
+          "zero after the first update")
+    run = pathlib.Path("models") / "teacher"
+    saved = {f.stem: checkpoint.load(f) for f in run.glob("*_model.npz")}
+    check(lines[-1] == "done; best saved under models/"
+          and "final_model" in saved
+          and all(v["pi_w1"].shape == (14, 64) for v in saved.values()),
+          f"12a: the artifacts {sorted(saved)}: "
+          f"{[v['pi_w1'].shape for v in saved.values()]}")
+    n_eval = counts["K2"] - 64
+    print(f"tools 12a: {' + '.join(str(x['launches']) for x in its)} K2 "
+          f"launches in the rollouts (1024 envs x 32 steps), {n_eval} in "
+          f"the runner's 2 evals of 5 x {RUNNER_EVAL_STEPS} steps; ms per "
+          "iteration (CUDA events) " + ", ".join(
+              f"{x['iteration']:.1f} = rollout {x['rollout']:.1f} + update "
+              f"{x['update']:.1f}" for x in its)
+          + f"; padded mean on [obs, priv] bit-equal to r2i's on obs "
+          f"(largest gap {seen['gap']:.1e}); privileged rows of pi_w1 up to "
+          f"{seen['rows']:.3e} after the first update; the run's params "
+          f"{sorted(saved)} with 14 inputs (best_model.npz is written where "
+          "an eval beats the warm start's)")
+
+    zero_counts(modules)
+    with grades_of(modules, "K1") as grades, workflow_spies(
+            modules, "K1") as log:
+        _, lines, _ = run_main("12a train_run turbo", train_run.main, [
+            "Env01-v2", "--solver", "turbo", "--max-steps", "32768",
+            "--run-name", "turbo"])
+    counts = counts_of(modules)
+    check(counts == {"K1": 32, "K2": 0, "K3": 0} and grades == {(2, 4)}
+          and lines[-1] == "done; best saved under models/"
+          and (pathlib.Path("models") / "turbo" / "final_model.npz")
+          .exists(),
+          f"12a turbo: {counts}, grades {grades}")
+    x, = log["iterations"]
+    print(f"tools 12a turbo: K1 launches {counts['K1']} at Newton "
+          f"{sorted(grades)[0][0]} / line search {sorted(grades)[0][1]}; "
+          f"{x['iteration']:.1f} ms = rollout {x['rollout']:.1f} + update "
+          f"{x['update']:.1f} (the first iteration)")
+
+
+def tools_12b(modules):
+    """12b: `train_offpolicy` SAC on Env01-v2 at the tool's defaults, 20
+    iterations past learning_starts; collect and update ms by CUDA
+    events, updates per iteration."""
+    from balance_robot_tpu_torch.train import train_offpolicy
+    from balance_robot_tpu_torch.train.offpolicy import OffPolicy
+    from balance_robot_tpu_torch.utils.profiling import Timer
+    n_envs, grad_steps, starts = 64, 8, 10_000
+    warm = -(-starts // n_envs) - 1          # iterations with no update
+    iters = warm + OFF_ITERS_PAST_STARTS
+    rows, timers = [], []
+    iteration, update = OffPolicy.iteration, OffPolicy._update
+
+    def timed(self, ts, timer=None):
+        t = Timer()
+        timers.append(t)
+        rows.append(dict(updates=0, k1=modules["K1"].launches))
+        with t("iteration"):
+            out = iteration(self, ts, timer=t)
+        rows[-1]["k1"] = modules["K1"].launches - rows[-1]["k1"]
+        return out
+
+    def counted(self, ts, idx=None, normals=None):
+        rows[-1]["updates"] += 1
+        return update(self, ts, idx, normals)
+
+    zero_counts(modules)
+    with mock.patch.object(OffPolicy, "iteration", timed), \
+            mock.patch.object(OffPolicy, "_update", counted):
+        _, lines, seconds = run_main("12b train_offpolicy SAC",
+                                     train_offpolicy.main, [
+            "SAC", "Env01-v2", "--max-steps", str(iters * n_envs)])
+    counts = counts_of(modules)
+    ups = [r["updates"] for r in rows]
+    check(len(rows) == iters and ups == [0] * warm
+          + [grad_steps] * OFF_ITERS_PAST_STARTS
+          and all(r["k1"] == 1 for r in rows)
+          and counts == {"K1": iters, "K2": 0, "K3": 0}
+          and lines[-1] == "done; artifacts under models/Env01-v2_SAC/",
+          f"12b: updates per iteration {ups}, {counts}")
+    reps = [t.report() for t in timers]
+
+    def mean(key, part):
+        return float(np.mean([r[key]["mean_ms"] for r in part]))
+
+    before, after = reps[1:warm], reps[warm:]
+    print(f"tools 12b: {iters} iterations of 64 envs ({warm} before "
+          f"learning_starts {starts}, then {grad_steps} updates of batch "
+          f"256 each), K1 launches {counts['K1']}; ms per iteration (CUDA "
+          f"events, means) before: {mean('iteration', before):.3f} = collect "
+          f"{mean('collect', before):.3f} + update "
+          f"{mean('update', before):.3f}; after: "
+          f"{mean('iteration', after):.3f} = collect "
+          f"{mean('collect', after):.3f} + update {mean('update', after):.3f}"
+          f" ({mean('update', after) / grad_steps:.3f} per update step)")
+
+
+def tools_12c(modules, tmp):
+    """12c: `profile_train` at its defaults, 2 reps, with a trace; the
+    per-phase kernels and busy share, the update's largest kernels."""
+    from balance_robot_tpu_torch.train import profile_train
+    zero_counts(modules)
+    res, lines, seconds = run_main("12c profile_train", profile_train.main, [
+        "--reps", "2", "--trace", str(tmp / "trace")])
+    counts = counts_of(modules)
+    names = ("config:", "rollout-only", "gae+update-only", "full iteration",
+             "overhead (iter - roll - upd)")
+    trace = res["trace"]
+    roll_k1 = sum(c for n, _, c in trace["rollout"]["top"]
+                  if "control_step_kernel" in n)
+    check(all(line.startswith(n) for line, n in zip(lines, names))
+          and counts == {"K1": 8 * 64, "K2": 0, "K3": 0} and roll_k1 == 64
+          and all(trace[p]["kernels"] > 0 for p in profile_train.PHASES),
+          f"12c: {counts}, K1 in the traced rollout {roll_k1}, "
+          f"{ {p: v['kernels'] for p, v in trace.items()} }")
+    upd = trace["update"]
+
+    def short(name):
+        for noise in ("void ", "at::native::", "(anonymous namespace)::"):
+            name = name.replace(noise, "")
+        return name[:110]
+
+    print("tools 12c: the update's ten largest kernels by CUDA time (ms, "
+          "launches): " + "; ".join(f"{short(n)} {ms:.3f} ({c})"
+                                    for n, ms, c in upd["top"][:10]))
+    print("tools 12c: busy share of the traced iteration's phases: "
+          + ", ".join(
+        f"{p} {100 * trace[p]['busy_ms'] / trace[p]['wall_ms']:.1f}% of "
+        f"{trace[p]['wall_ms']:.1f} ms ({trace[p]['kernels']} kernels)"
+        for p in profile_train.PHASES))
+
+
+def tools_12d(modules, tmp):
+    """12d: `widen_policy` of r2i with the privileged inputs, 256 units."""
+    from balance_robot_tpu_torch.models import mlp
+    from balance_robot_tpu_torch.train import checkpoint, widen_policy
+    out = tmp / "wide" / "wide_init.npz"
+    zero_counts(modules)
+    _, lines, _ = run_main("12d widen_policy", widen_policy.main, [
+        str(tmp / "r2i.npz"), "--env", "Env03-v2", "--priv", "--hidden",
+        "256", "--out", str(out)])
+    net = mlp.from_numpy_params(checkpoint.load(out), device="cuda")
+    check(lines == [f"exact wide copy: in 6->14, hidden 64->256 -> {out}"]
+          and tuple(net.pi_l1.weight.shape) == (256, 14)
+          and tuple(net.vf_l1.weight.shape) == (256, 14)
+          and counts_of(modules) == dict.fromkeys(modules, 0),
+          f"12d: {lines}")
+
+
+def tools_12e(modules, tmp):
+    """12e: `distill_teacher` from the committed teacher into r2i, 2
+    iterations at the defaults, the two evals cut to DISTILL_EVAL_STEPS; K2's
+    33rd launch of the first collect held to the plain version, the
+    teacher's labels there to its float64 mean on the CPU."""
+    from balance_robot_tpu_torch.models import mlp
+    from balance_robot_tpu_torch.train import checkpoint, distill_teacher
+    from balance_robot_tpu_torch.train.distill_teacher import DAgger
+    teacher = checkpoint.load(tmp / "teacher.npz")
+    collects, kept, label_in = [], [], []
+    collect, update = DAgger.collect, DAgger.update
+
+    def timed(fn, what):
+        def spy(self, *args, **kwargs):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            before = modules["K2"].launches
+            e0.record()
+            out = fn(self, *args, **kwargs)
+            e1.record()
+            collects.append(dict(what=what, events=(e0, e1),
+                                 launches=modules["K2"].launches - before,
+                                 beta=args[4] if what == "collect" else None,
+                                 out=out if what == "collect" else None))
+            return out
+        return spy
+
+    def first_collect(self, *args, **kwargs):
+        if any(c["what"] == "collect" for c in collects):
+            return timed(collect, "collect")(self, *args, **kwargs)
+        mean = self.teacher.policy_mean
+        calls = []
+
+        def keep(x):
+            if len(calls) == HOLD_STEP_12E:
+                label_in.append(x.clone())
+            calls.append(1)
+            return mean(x)
+
+        with mock.patch.object(self.teacher, "policy_mean", keep), \
+                inputs_of_launch(modules, "K2", HOLD_STEP_12E) as k:
+            out = timed(collect, "collect")(self, *args, **kwargs)
+        kept.extend(k)
+        return out
+
+    zero_counts(modules)
+    with mock.patch.object(DAgger, "collect", first_collect), \
+            mock.patch.object(DAgger, "update", timed(update, "update")), \
+            short_horizon(DISTILL_EVAL_STEPS), \
+            workflow_spies(modules) as log:
+        res, lines, seconds = run_main("12e distill_teacher",
+                                       distill_teacher.main, [
+            "--teacher", str(tmp / "teacher.npz"), "--init",
+            str(tmp / "r2i.npz"), "--out", str(tmp / "dagger"), "--iters",
+            "2", "--eval-every", "2"])
+    counts = counts_of(modules)
+    cols = [c for c in collects if c["what"] == "collect"]
+    ups = [c for c in collects if c["what"] == "update"]
+    n_eval = sum(e["launches"] for e in log["evals"])
+    check(len(cols) == 2 and [c["launches"] for c in cols] == [64, 64]
+          and [c["beta"] for c in cols] == [1.0, 0.0]
+          and len(log["evals"]) == 2
+          and counts == {"K1": 0, "K2": 128 + n_eval, "K3": 0},
+          f"12e: collects {[(c['launches'], c['beta']) for c in cols]}, "
+          f"{len(log['evals'])} evals, {counts}")
+    check_eval_launches("12e", log, DISTILL_EVAL_STEPS)
+    check(lines[1].startswith("[dagger 0] beta=1 buffer=65536 ")
+          and lines[2].startswith("[dagger 1] beta=0 buffer=131072 ")
+          and lines[-1].startswith("[dagger] best: "),
+          f"12e: the tool's lines {lines}")
+    # the teacher's labels at the 33rd step: its float32 mean on the card
+    # against its float64 mean on the CPU, on the same inputs
+    B = 1024
+    labels = cols[0]["out"][3][HOLD_STEP_12E * B:(HOLD_STEP_12E + 1) * B]
+    x, = label_in
+    ref = mlp.from_numpy_params(teacher, dtype=torch.float64).policy_mean(
+        x.double().cpu()).clamp(-1.0, 1.0)
+    gap = (labels.double().cpu() - ref).abs().max().item()
+    check(x.shape == (B, 14) and gap <= 1e-5,
+          f"12e: the teacher's labels depart from its float64 mean by "
+          f"{gap:.3e}")
+    hold_on_path(modules, "K2", f"12e collect {HOLD_STEP_12E + 1}", kept)
+    best = checkpoint.load(tmp / "dagger" / "best_model.npz")
+    check(best["pi_w1"].shape == (6, 64)
+          and (tmp / "dagger" / "final_model.npz").exists(),
+          f"12e: best_model.npz pi_w1 {best['pi_w1'].shape}")
+    col_ms = [c["events"][0].elapsed_time(c["events"][1]) for c in cols]
+    up_ms = [c["events"][0].elapsed_time(c["events"][1]) for c in ups]
+    print(f"tools 12e: K2 launches {counts['K2']} = collects "
+          f"{' + '.join(str(c['launches']) for c in cols)} (B = {B}) + "
+          f"evals {n_eval} ({len(log['evals'])} of {512} x "
+          f"{DISTILL_EVAL_STEPS}); collect ms (CUDA events) "
+          + ", ".join(f"{ms:.1f} ({ms / 64:.2f} per step)" for ms in col_ms)
+          + "; update ms " + ", ".join(f"{ms:.1f}" for ms in up_ms)
+          + f" ({res['dagger'].n_minibatches()} minibatch steps of 4096); "
+          "s per eval "
+          + ", ".join(f"{e['seconds']:.2f}" for e in log["evals"])
+          + f"; labels at step {HOLD_STEP_12E + 1} within {gap:.2e} of the "
+          f"teacher's float64 mean; best {res['best']}")
+
+
+def tools_phase(modules):
+    """Phase 12: 12a-12e (see the module docstring), in a temporary working
+    directory under build/ with copies of the checkpoints; the repo's
+    models/, logs/ and movies/ must be as they were."""
+    root = pathlib.Path(__file__).resolve().parent
+    guarded = {d: _files(root / d) for d in ("models", "logs", "movies")}
+    build = root / "build"
+    build.mkdir(exist_ok=True)
+    cwd = os.getcwd()
+    t12 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        tmp = pathlib.Path(tmp)
+        shutil.copy(root / POLICY03, tmp / "r2i.npz")
+        shutil.copy(root / TEACHER03, tmp / "teacher.npz")
+        os.chdir(tmp)
+        try:
+            tools_12a(modules, tmp)
+            tools_12b(modules)
+            tools_12c(modules, tmp)
+            tools_12d(modules, tmp)
+            tools_12e(modules, tmp)
+        finally:
+            os.chdir(cwd)
+    after = {d: _files(root / d) for d in guarded}
+    check(after == guarded, "phase 12 wrote into the repo's models/, logs/ "
+          "or movies/")
+    print(f"tools: phase 12 in {time.perf_counter() - t12:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--serve03-steps", type=int, default=SERVE03_STEPS,
@@ -2163,6 +2565,7 @@ def main():
     from balance_robot_tpu_torch.physics import step as st
     from balance_robot_tpu_torch.train import checkpoint
     from balance_robot_tpu_torch.train.evaluation import ChunkedEvaluator
+    from balance_robot_tpu_torch.train.train_run import TURBO
 
     # ---- 2. build: one nvcc per source, started together
     modules = build_kernels()
@@ -2178,7 +2581,13 @@ def main():
                  (torch.float64, "Env02 fast", fast_solver(rc.ENV02_PARAMS)),
                  (torch.float32, "Env01 fast", fast_solver(rc.ENV01_PARAMS)),
                  (torch.float32, "Env02 fast", fast_solver(rc.ENV02_PARAMS))]
-        for (dtype, name, params), x in zip(cases, states3["K1"]):
+        # the turbo grade (Newton 2 / line search 4: train_run --solver
+        # turbo) on the Env01 fast cases' states
+        turbo01 = fast_solver(rc.ENV01_PARAMS, **TURBO)
+        cases += [(torch.float64, "Env01 turbo", turbo01),
+                  (torch.float32, "Env01 turbo", turbo01)]
+        for (dtype, name, params), x in zip(
+                cases, states3["K1"] + [states3["K1"][1], states3["K1"][4]]):
             qpos, qvel, ws, ctrl, fric = (
                 torch.tensor(a, dtype=dtype, device="cuda") for a in x)
             fr = fric if params.dynamic_friction else None
@@ -2194,7 +2603,11 @@ def main():
         cases = [(torch.float64, "Env03 exact", bs.ENV03_PARAMS),
                  (torch.float64, "Env03 fast", fast_solver(bs.ENV03_PARAMS)),
                  (torch.float32, "Env03 fast", fast_solver(bs.ENV03_PARAMS))]
-        for (dtype, name, params), x in zip(cases, states3["K2"]):
+        turbo03 = fast_solver(bs.ENV03_PARAMS, **TURBO)
+        cases += [(torch.float64, "Env03 turbo", turbo03),
+                  (torch.float32, "Env03 turbo", turbo03)]
+        for (dtype, name, params), x in zip(
+                cases, states3["K2"] + [states3["K2"][1], states3["K2"][2]]):
             qpos, qvel, ctrl = (
                 torch.tensor(a, dtype=dtype, device="cuda") for a in x)
             ws = torch.zeros_like(qvel)
@@ -2439,8 +2852,10 @@ def main():
         exact = torch.from_numpy(int8_exact(env_move.inner, inner_obs))
         card_fn = quant.int8_policy_fn(env_move.inner, "cuda")
         on_card = card_fn(torch.from_numpy(inner_obs).cuda()).cpu()
-        with mock.patch.object(torch, "tanh", lambda x: torch.from_numpy(
-                np.tanh(x.cpu().numpy())).to(x.device)):
+        def shared(x):
+            return torch.from_numpy(np.tanh(x.cpu().numpy())).to(x.device)
+
+        with mock.patch.object(torch, "tanh", shared):
             shared_tanh = card_fn(torch.from_numpy(inner_obs).cuda()).cpu()
         if not torch.equal(shared_tanh, exact):
             bad = (shared_tanh != exact).any(1).nonzero().flatten()
@@ -2451,17 +2866,21 @@ def main():
                  f"from int8_exact: {int((shared_tanh != exact).sum())} of "
                  f"{exact.numel()} outputs on {bad.numel()} obs, by up to "
                  f"{(shared_tanh - exact).abs().max().item():.3e}")
-        on_cpu = quant.int8_policy_fn(env_move.inner, "cpu")(
-            torch.from_numpy(inner_obs))
+        cpu_fn = quant.int8_policy_fn(env_move.inner, "cpu")
+        on_cpu = cpu_fn(torch.from_numpy(inner_obs))
+        with mock.patch.object(torch, "tanh", shared):
+            cpu_shared = cpu_fn(torch.from_numpy(inner_obs))
         scale = float(env_move.inner.out_q.scale)
         lsb = (on_card - exact).abs() / scale
         n_diff = int((lsb > 0.5).sum())
         n_cpu = int(((on_cpu - exact).abs() / scale > 0.5).sum())
+        n_cpu_shared = int((cpu_shared != exact).sum())
         print(f"int8 inner policy, card vs exact integer arithmetic on "
               f"{N_ENVS} obs: equal on all {lsb.numel()} int8 outputs with "
               f"one tanh; with the card's own tanh {n_diff} differ, by at "
               f"most {lsb.max().item():.2f} LSB; torch's CPU path differs "
-              f"from it on {n_cpu}")
+              f"from it on {n_cpu} with torch's CPU tanh, and on "
+              f"{n_cpu_shared} with the one tanh (numpy's, int8_exact's)")
         check(lsb.max().item() <= 1.001
               and n_diff <= INT8_TANH_SHARE * lsb.numel(),
               "the int8 policy disagrees between the card and int8_exact")
@@ -2582,6 +3001,8 @@ def main():
     # ---- 11. the selection workflow: the burst ratchet, the sweep, the
     # large eval (autograd on for the ratchet's PPO)
     selection_phase(modules)
+    # ---- 12. the run drivers, the profiler, the teacher-student recipe
+    tools_phase(modules)
 
     static = {
         "K1": ("k1_control_step",
