@@ -9,8 +9,9 @@ loses). Its consumers in the JAX package are `tools/oracle_probe.py` and
 `tools/burst_refine.py`.
 
 The rollout runs in chunks of control steps, with one host sync per chunk
-(whether every episode is done); an episode that is done is frozen, as in
-`train/evaluation.py`.
+(whether every episode is done), and stops at the horizon; an episode that
+is done is frozen, as in `train/evaluation.py`. (The JAX harvest runs whole
+chunks past the horizon, where every episode is done and nothing changes.)
 """
 
 import numpy as np
@@ -60,7 +61,7 @@ def harvest_fatal_states(env, params, episodes=512, seed=0, chunk=250,
     prev_parked = torch.zeros_like(done)
     steps = 0
     while steps < max_steps:
-        for i in range(steps, steps + chunk):
+        for i in range(steps, min(steps + chunk, max_steps)):
             a = net.policy_mean(obs.to(env.dtype)).clamp(-1.0, 1.0)
             u = uniforms[i] if uniforms is not None and i < len(
                 uniforms) else None
