@@ -32,6 +32,7 @@ import jax
 import jax.numpy as jnp
 import optax
 
+import balance_robot_tpu as jbrt
 from balance_robot_tpu.models import mlp as jmlp
 from balance_robot_tpu.train import checkpoint as jcheckpoint
 
@@ -165,6 +166,36 @@ def test_move_probe_rollout_is_the_jax_tools(x64):
     assert (lens == T).all()
     # the members' actions differ, and so do their returns
     assert np.abs(rets[0] - rets[1]).min() > 1e-6
+
+
+
+def test_move_probe_reference_runs_the_ports_episodes(x64):
+    """tests/move_probe_reference.py, whose JAX returns 13e holds the
+    port's to: from the port's reset draws its starts are the port's
+    reset, and 3 steps of two members are the port's rollout (float64)."""
+    import move_probe_reference as ref
+    T, grid = 3, [move_probe.THRESH_GRID[0], move_probe.THRESH_GRID[41]]
+    u = ref.uniforms()
+    env = brt.make("EnvMove05-v1", device="cpu", dtype=F64).use_fast_solver()
+    env._uniform = lambda *shape: torch.tensor(u, dtype=F64)
+    states, obs = env.reset(len(u))
+    jenv = jbrt.make("EnvMove05-v1").use_fast_solver()
+    for i, row in enumerate(u):
+        js, jobs = ref.start(jenv, row)
+        np.testing.assert_allclose(states.phys.qpos[i],
+                                   np.stack(js.phys.qpos), rtol=0, atol=1e-12)
+        np.testing.assert_array_equal(obs[i], jobs)
+        assert float(js.target_wheel_speed) == pytest.approx(
+            float(states.target_wheel_speed[i]), abs=1e-12)
+        assert not bool(js.has_last) and not bool(states.has_last[i])
+    rets, lens = move_probe.rollout(env, move_probe.thresh_policy, grid,
+                                    len(u), T, start=(states, obs))
+    jrets, jlens = ref.returns(jenv, jax_tool_defs()["thresh_policy"], grid,
+                               u, T)
+    np.testing.assert_allclose(rets, jrets, rtol=0, atol=1e-9)
+    np.testing.assert_array_equal(lens, jlens)
+    # the members' actions differ, and so do their returns
+    assert np.abs(rets[0] - rets[1]).max() > 1e-6
 
 
 def jax_fit(params, draws, args):
