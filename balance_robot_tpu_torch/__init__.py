@@ -1,10 +1,18 @@
 """balance_robot_tpu_torch: the balance-robot system in PyTorch and CUDA.
 
 A port of `balance_robot_tpu` (JAX) that keeps its module layout. The env
-registry uses the reference's Gymnasium ids, all nine of them.
+registry uses the reference's Gymnasium ids, all nine of them. The import
+is the set-up span `setup.import` (`utils/profiling.setup_span`), from the
+first line of this file to the end of `_populate()`.
 """
 
-import torch
+import time
+
+_IMPORT_START_NS = time.perf_counter_ns()
+
+import torch  # noqa: E402
+
+from .utils import profiling  # noqa: E402
 
 _REGISTRY = {}
 
@@ -46,4 +54,5 @@ def _populate():
         register(cls.id, cls)
 
 
-_populate()
+with profiling.setup_span("setup.import", start_ns=_IMPORT_START_NS):
+    _populate()

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .utils.profiling import span
 
 # train.factory.KNOWN: train runs each of them, test and convert read
 # every kind of checkpoint
@@ -116,37 +117,55 @@ def _run_episodes(env, act_fn, episodes, max_steps, show_io=False,
     show_io / show_i log every 30th step like the reference
     (sb_rl.py:168-171); `record` saves the qpos trajectory for
     tools/replay.py; an env with `telemetry(state)` (Cal01) gets its
-    `time, vel_l, vel_r` CSV row printed every step (cal01.py:31)."""
+    `time, vel_l, vel_r` CSV row printed every step (cal01.py:31).
+    Under a profiler each step is a `cli.step` span (`utils/profiling.
+    span`) holding `cli.act`, `cli.env_step`, `cli.done` (the reward and
+    done reads of a live episode) and one `cli.sync.*` span around each
+    read that waits for the device (the act fn of `_policy_act` adds
+    two)."""
     traj = []
     telemetry = getattr(env, "telemetry", None)
     for ep in range(episodes):
         state, obs = env.reset(1)
         ret, t, done_at = 0.0, 0, None
         while t < max_steps + GRACE_STEPS + 1:
-            o = obs[0].cpu().numpy()
-            action = act_fn(o)
-            if show_io and t % 30 == 0:
-                print(f"obs={o} action={action}")
-            if show_i and t % 30 == 0:
-                # reference --show-i: obs in Python list syntax, ready to
-                # paste into a quantization envelope (sb_rl.py:170-171)
-                print(str([float(v) for v in o]) + ",")
-            a = torch.as_tensor(np.asarray(action), dtype=env.dtype,
-                                device=env.device).reshape(1, -1)
-            state, obs, r, term, trunc = env.step(state, a)
-            if record is not None:
-                traj.append(state.phys.qpos[0].cpu().numpy())
-            if telemetry is not None:
-                tt, vl, vr = (float(x[0]) for x in telemetry(state))
-                print(f"{tt:.6f}, {vl:.6f}, {vr:.6f}")
-            t += 1
-            if done_at is None:
-                ret += float(r[0])
-                if bool(term[0]) or bool(trunc[0]):
-                    done_at = t
-                    print(f"episode {ep}: return={ret:.1f} len={t}")
-            elif t - done_at > GRACE_STEPS:
-                break
+            with span("cli.step"):
+                with span("cli.sync.obs"):
+                    o = obs[0].cpu().numpy()
+                with span("cli.act"):
+                    action = act_fn(o)
+                if show_io and t % 30 == 0:
+                    print(f"obs={o} action={action}")
+                if show_i and t % 30 == 0:
+                    # reference --show-i: obs in Python list syntax, ready
+                    # to paste into a quantization envelope
+                    # (sb_rl.py:170-171)
+                    print(str([float(v) for v in o]) + ",")
+                with span("cli.sync.action"):
+                    a = torch.as_tensor(np.asarray(action), dtype=env.dtype,
+                                        device=env.device).reshape(1, -1)
+                with span("cli.env_step"):
+                    state, obs, r, term, trunc = env.step(state, a)
+                if record is not None:
+                    traj.append(state.phys.qpos[0].cpu().numpy())
+                if telemetry is not None:
+                    tt, vl, vr = (float(x[0]) for x in telemetry(state))
+                    print(f"{tt:.6f}, {vl:.6f}, {vr:.6f}")
+                t += 1
+                if done_at is None:
+                    with span("cli.done"):
+                        with span("cli.sync.reward"):
+                            ret += float(r[0])
+                        with span("cli.sync.term"):
+                            done = bool(term[0])
+                        if not done:
+                            with span("cli.sync.trunc"):
+                                done = bool(trunc[0])
+                    if done:
+                        done_at = t
+                        print(f"episode {ep}: return={ret:.1f} len={t}")
+                elif t - done_at > GRACE_STEPS:
+                    break
         if done_at is None:
             print(f"episode {ep}: return={ret:.1f} len={t}")
     if record is not None:
@@ -163,8 +182,11 @@ def _policy_act(params, env):
     net = mlp.from_numpy_params(params, device=env.device, dtype=env.dtype)
 
     def act(obs):
-        o = torch.as_tensor(obs, dtype=env.dtype, device=env.device)
-        return net.policy_mean(o[None])[0].cpu().numpy()
+        with span("cli.sync.policy_in"):
+            o = torch.as_tensor(obs, dtype=env.dtype, device=env.device)
+        mean = net.policy_mean(o[None])[0]
+        with span("cli.sync.policy_out"):
+            return mean.cpu().numpy()
     return act
 
 

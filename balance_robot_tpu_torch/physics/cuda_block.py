@@ -21,6 +21,7 @@ import torch
 from . import block_step as bs
 from . import cuda_step
 from . import kernel_build
+from ..utils import profiling
 
 LABEL, SOURCE = "k2", "control_step14.cu"    # library label, file in csrc/
 
@@ -107,7 +108,9 @@ def build(process=None):
     `process` is a compile already started with `kernel_build.start_build`."""
     global _lib
     if _lib is None:
-        _lib = _bind(kernel_build.build(LABEL, SOURCE, build_info, process))
+        with profiling.setup_span("kernel.load"):
+            _lib = _bind(kernel_build.build(LABEL, SOURCE, build_info,
+                                            process))
     return _lib
 
 
@@ -135,10 +138,12 @@ def control_step14_cuda(qpos, qvel, ws, ctrl, params, frame_skip=250):
     import ctypes
     with torch.cuda.device(qpos.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(qpos.data_ptr(), qvel.data_ptr(), ws.data_ptr(),
-                 ctrl.data_ptr(), qp.data_ptr(), qv.data_ptr(), w.data_ptr(),
-                 B, ctypes.byref(kernel_params(params)), params.newton_iters,
-                 params.ls_iters, frame_skip, stream)
+        with kernel_build.first_launch(fn.__name__):
+            err = fn(qpos.data_ptr(), qvel.data_ptr(), ws.data_ptr(),
+                     ctrl.data_ptr(), qp.data_ptr(), qv.data_ptr(),
+                     w.data_ptr(), B, ctypes.byref(kernel_params(params)),
+                     params.newton_iters, params.ls_iters, frame_skip,
+                     stream)
     if err != 0:
         raise RuntimeError(f"K2 launch failed: CUDA error {err}")
     launches += 1

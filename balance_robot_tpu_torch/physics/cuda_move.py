@@ -31,6 +31,7 @@ import torch
 from . import cuda_step
 from . import kernel_build
 from . import step as st
+from ..utils import profiling
 
 LABEL, SOURCE = "k3", "control_step_walls.cu"   # library label, file in csrc/
 MAX_WALLS = 4                                   # the kernel's ParamsWalls
@@ -128,7 +129,9 @@ def build(process=None):
     `process` is a compile already started with `kernel_build.start_build`."""
     global _lib
     if _lib is None:
-        _lib = _bind(kernel_build.build(LABEL, SOURCE, build_info, process))
+        with profiling.setup_span("kernel.load"):
+            _lib = _bind(kernel_build.build(LABEL, SOURCE, build_info,
+                                            process))
     return _lib
 
 
@@ -170,10 +173,11 @@ def control_step_walls_cuda(qpos, qvel, ws, ctrl, params, frame_skip=250):
     import ctypes
     with torch.cuda.device(qpos.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(qpos.data_ptr(), qvel.data_ptr(), ws.data_ptr(),
-                 ctrl.data_ptr(), qp.data_ptr(), qv.data_ptr(), w.data_ptr(),
-                 B, ctypes.byref(kp), params.newton_iters, params.ls_iters,
-                 frame_skip, team, stream)
+        with kernel_build.first_launch(f"{fn.__name__}/{team}"):
+            err = fn(qpos.data_ptr(), qvel.data_ptr(), ws.data_ptr(),
+                     ctrl.data_ptr(), qp.data_ptr(), qv.data_ptr(),
+                     w.data_ptr(), B, ctypes.byref(kp), params.newton_iters,
+                     params.ls_iters, frame_skip, team, stream)
     if err != 0:
         raise RuntimeError(f"K3 launch failed: CUDA error {err}")
     launches += 1

@@ -23,6 +23,7 @@ import torch
 
 from . import kernel_build
 from .step import PhysState, control_step as _control_step_torch
+from ..utils import profiling
 
 LABEL, SOURCE = "k1", "control_step.cu"      # library label, file in csrc/
 
@@ -145,7 +146,9 @@ def build(process=None):
     `process` is a compile already started with `kernel_build.start_build`."""
     global _lib
     if _lib is None:
-        _lib = _bind(kernel_build.build(LABEL, SOURCE, build_info, process))
+        with profiling.setup_span("kernel.load"):
+            _lib = _bind(kernel_build.build(LABEL, SOURCE, build_info,
+                                            process))
     return _lib
 
 
@@ -208,11 +211,13 @@ def control_step_cuda(qpos, qvel, ws, ctrl, friction, params, frame_skip=250):
     fric_ptr = friction.data_ptr() if use_friction else None
     with torch.cuda.device(qpos.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(qpos.data_ptr(), qvel.data_ptr(), ws.data_ptr(),
-                 ctrl.data_ptr(), fric_ptr,
-                 qp.data_ptr(), qv.data_ptr(), w.data_ptr(), B,
-                 ctypes.byref(kernel_params(params)), params.newton_iters,
-                 params.ls_iters, frame_skip, int(use_friction), stream)
+        with kernel_build.first_launch(fn.__name__):
+            err = fn(qpos.data_ptr(), qvel.data_ptr(), ws.data_ptr(),
+                     ctrl.data_ptr(), fric_ptr,
+                     qp.data_ptr(), qv.data_ptr(), w.data_ptr(), B,
+                     ctypes.byref(kernel_params(params)),
+                     params.newton_iters, params.ls_iters, frame_skip,
+                     int(use_friction), stream)
     if err != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {err}")
     launches += 1

@@ -8,9 +8,12 @@ name carries a hash of the source, of every header of `csrc/` it includes
 to a shared header rebuilds every kernel that includes it, and an unchanged
 kernel is reused. `defines` (`-D` flags) and another source directory
 (`csrc`) build a variant under its own name, for timing one design against
-another in one run (`tools/time_kernels.py`).
+another in one run (`tools/time_kernels.py`). The wrappers time a
+kernel's build or load and its first launch as set-up spans
+(`utils/profiling.setup_span`: `kernel.load`, `kernel.first_launch`).
 """
 
+import contextlib
 import hashlib
 import os
 import re
@@ -18,12 +21,16 @@ import subprocess
 import time
 from pathlib import Path
 
+from ..utils import profiling
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+_launched = set()   # the kernel entries launched in this process
 
 
 def sources(name, csrc=None):
@@ -103,3 +110,13 @@ def build(label, name, info, process=None, csrc=None, defines=()):
                 library=str(so), ptxas=ptxas,
                 resources=re.findall(r"Used \d+ registers[^\n]*", ptxas))
     return so
+
+
+def first_launch(entry):
+    """A `kernel.first_launch` set-up span around the process's first
+    launch through the kernel entry `entry` (a name), else nothing: that
+    host call holds CUDA's lazy load of the kernel."""
+    if entry in _launched:
+        return contextlib.nullcontext()
+    _launched.add(entry)
+    return profiling.setup_span("kernel.first_launch")

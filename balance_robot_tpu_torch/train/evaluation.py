@@ -7,7 +7,9 @@ of fresh episodes runs in lockstep; an env that is done is frozen (state,
 obs, return and length stop changing), and reaching `max_steps` counts as
 a truncation, so returns and lengths are exact at any step budget. The
 host checks whether every episode is done once per chunk, not once per
-step.
+step. `evaluate_detail` counts the live episodes' env-steps and all it
+stepped (`utils/profiling.count`: `eval.live_env_steps`,
+`eval.stepped_env_steps`).
 
 Unlike the reference, a non-finite return raises instead of averaging to
 NaN: the runner's eval gate would otherwise never save a best model again
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from ..envs.base import tree_map
+from ..utils import profiling
 
 
 def _frozen(done, old, new):
@@ -55,7 +58,8 @@ class ChunkedEvaluator:
         t = torch.zeros(n_episodes, dtype=torch.int32, device=dev)
         steps = 0
         while steps < max_steps:
-            for _ in range(min(self.chunk, max_steps - steps)):
+            k = min(self.chunk, max_steps - steps)
+            for _ in range(k):
                 states2, obs2, r, term, trunc = self.env.step(
                     states, self.act_fn(params, obs))
                 states = _frozen(done, states, states2)
@@ -63,7 +67,7 @@ class ChunkedEvaluator:
                 ret = ret + torch.where(done, torch.zeros_like(r), r)
                 t = t + (~done).to(torch.int32)
                 done = done | term | trunc | (t >= max_steps)
-            steps += self.chunk
+            steps += k
             if bool(done.all()):
                 break
         rets = ret.cpu().numpy()
@@ -72,7 +76,13 @@ class ChunkedEvaluator:
             raise FloatingPointError(
                 f"{n_bad} of {n_episodes} evaluation episodes had a "
                 "non-finite return")
-        return rets, t.cpu().numpy()
+        lens = t.cpu().numpy()
+        # the env-steps of live episodes against all that were stepped: a
+        # done episode is stepped on, frozen, until every episode is done
+        # at a chunk's end or the horizon is reached
+        profiling.count("eval.live_env_steps", int(lens.sum()))
+        profiling.count("eval.stepped_env_steps", n_episodes * steps)
+        return rets, lens
 
     def evaluate(self, params, n_episodes, max_steps=None):
         """Mean (return, episode length) over n deterministic episodes."""

@@ -1,4 +1,4 @@
-"""Tracing and timing.
+"""Tracing, timing, spans and counters.
 
 Counterpart of `balance_robot_tpu/utils/profiling.py`:
   * `trace(logdir)`: a `torch.profiler` window over the CPU and, where
@@ -6,16 +6,113 @@ Counterpart of `balance_robot_tpu/utils/profiling.py`:
     the profiler is yielded, so `key_averages()` sums kernel time by name;
   * `Timer`: named phases, timed on the card by CUDA events recorded on
     the current stream, so timing waits for nothing until `report`
-    synchronizes once (on the CPU, by the host clock);
-  * `Throughput`: env-steps/s by the host clock.
+    synchronizes once (on the CPU, by the host clock).
+
+The port's own spans and counters, kept in one in-memory store of the
+process (read in-process with `spans()` and `counters()`, written out
+nowhere; `clear()` empties it):
+  * `span(name)`: a per-step span. It records only while a `torch.profiler`
+    session records (`trace`, or any other), and then lies both in the
+    profiler's trace, as a `record_function` of that name on the clock of
+    the device's kernels, and in the store. Without a profiler it costs one
+    check and records nothing: no setting turns spans on;
+  * `setup_span(name)`: one-off set-up work (the package's import, a
+    kernel's build or load, its first launch), always stored, and in the
+    profiler's trace too where one records;
+  * `count(name, n)`: integer counters, always on.
+
+A stored span is (name, parent, start_ns, end_ns), stamped by
+`time.perf_counter_ns()`: `parent` is the index in `spans()` of the
+enclosing stored span, or None; `end_ns` is None while the span is open,
+and for a per-step span during which the profiler stopped. Spans nest as
+the `with` blocks of one thread do. The store holds at most `MAX_SPANS`;
+the spans past it are counted in `profiling.spans_dropped`.
 """
 
 import contextlib
 import time
 
 import torch
+from torch.autograd import _profiler_enabled
 
 from ..device import resolve_device
+
+MAX_SPANS = 100_000
+
+_spans = []     # [name, parent, start_ns, end_ns] per stored span
+_open = []      # each open span's index (None: not stored), innermost last
+_counters = {}
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "per_step", "start_ns", "rf", "record")
+
+    def __init__(self, name, per_step, start_ns=None):
+        self.name = name
+        self.per_step = per_step
+        self.start_ns = start_ns
+
+    def __enter__(self):
+        self.rf = None
+        if self.per_step or _profiler_enabled():
+            self.rf = torch.profiler.record_function(self.name)
+            self.rf.__enter__()
+        self.record = None
+        if len(_spans) < MAX_SPANS:
+            self.record = [self.name, _open[-1] if _open else None,
+                           self.start_ns or time.perf_counter_ns(), None]
+            _open.append(len(_spans))
+            _spans.append(self.record)
+        else:
+            _open.append(None)
+            count("profiling.spans_dropped")
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        _open.pop()
+        # a per-step span is whole only if the profiler recorded all of it
+        if self.record is not None and (not self.per_step
+                                        or _profiler_enabled()):
+            self.record[3] = end
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
+def span(name):
+    """`with span(name):` around per-step work; recorded only while a
+    `torch.profiler` session records."""
+    return _Span(name, True) if _profiler_enabled() else _OFF
+
+
+def setup_span(name, start_ns=None):
+    """`with setup_span(name):` around one-off set-up work; always stored.
+    `start_ns`: a `time.perf_counter_ns()` stamp taken where the work
+    began, before this module could be imported."""
+    return _Span(name, False, start_ns)
+
+
+def count(name, n=1):
+    _counters[name] = _counters.get(name, 0) + n
+
+
+def spans():
+    """The stored spans, (name, parent, start_ns, end_ns) each, in the
+    order they began."""
+    return [tuple(r) for r in _spans]
+
+
+def counters():
+    return dict(_counters)
+
+
+def clear():
+    """Empty the store; a span still open is then stored nowhere."""
+    _spans.clear()
+    _open[:] = [None] * len(_open)
+    _counters.clear()
 
 
 @contextlib.contextmanager
@@ -71,22 +168,3 @@ class Timer:
                              mean_ms=1e3 * sum(secs) / len(secs),
                              n=len(secs))
         return out
-
-
-class Throughput:
-    """env-steps/s: `tp.add(n_steps)` after each batch, `tp.rate()` for the
-    rate since construction or the last `reset()`."""
-
-    def __init__(self):
-        self.reset()
-
-    def add(self, n):
-        self.steps += n
-
-    def rate(self):
-        dt = time.perf_counter() - self.t0
-        return self.steps / dt if dt > 0 else 0.0
-
-    def reset(self):
-        self.t0 = time.perf_counter()
-        self.steps = 0

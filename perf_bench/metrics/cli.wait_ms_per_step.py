@@ -1,0 +1,14 @@
+"""ms per step in which the B = 1 loop's host waits on the card: the
+`cli.sync.*` spans inside the complete `cli.step` spans, over the steps.
+Read from the port's span store in this process (`perf_bench/spans.py`,
+which imports `balance_robot_tpu_torch.utils.profiling`)."""
+from perf_bench import spans
+
+
+def value(store_spans, counters):
+    s = spans.cli_steps(store_spans)
+    return None if s is None else 1e-6 * s["wait_ns"] / s["steps"]
+
+
+def read(data):
+    return spans.read(value)
