@@ -21,29 +21,36 @@
 // update on M - h*D (8x8 Cholesky and 6 divisions) -> integration of both
 // free joints. No dynamic friction: the Env03 envs carry none.
 //
-// Design: a team of TEAM lanes of one warp per env (team_solve in
-// robot_common.cuh), one warp per block (THREADS / TEAM envs), all
-// substeps in one launch. Only qpos, qvel, warm start and ctrl cross device
-// memory, once each; the ragged batch edge is masked per team; scene
-// parameters and iteration counts are runtime arguments.
+// Design: a team of G lanes of one warp per env (team_solve in
+// robot_common.cuh), one warp per block (THREADS / G envs), all substeps
+// in one launch. Only qpos, qvel, warm start and ctrl cross device memory,
+// once each; the ragged batch edge is masked per team; scene parameters
+// and iteration counts are runtime arguments.
 // - Rows in shared memory. Only included contacts are kept, in the order
 //   robot-floor, block-floor, chassis-block, wheel-block; at most 8 + 4 + 4
 //   + 8 + 6 = 30 contacts (plane-box keeps the deepest 4; box-box gives 8
 //   face contacts or 1 edge contact), 120 rows, and every one of them fits:
 //   J (14 columns), aref, D, J a - aref, J step and the active weight,
 //   column-major with a stride of 121, plus the 119 Hessian and gradient
-//   entries: 9,672 bytes per env in float, 19,344 in double; 38.7 KB per
-//   block of 4 envs in float, 77.4 KB in double, where the launch opts in
-//   to more than 48 KB of dynamic shared memory. Sizing for the worst case
-//   keeps every contact without a second buffer in device memory; the cost
-//   is shared memory per SM: 5 blocks, 20 envs, fit an SM in float.
-// - Every lane computes the colliders (they are a small part of the
-//   chain); each group's candidates are then dealt to the lanes, and an
-//   included one writes its 4 rows at the slot that the count of included
-//   candidates before it gives, so the row order is the serial one.
+//   entries: 9,672 bytes per env in float, 19,344 in double. Sizing for the
+//   worst case keeps every contact without a second buffer in device
+//   memory.
+// - The 7 collider calls are dealt whole to the lanes (call c on lane c mod
+//   G); calls of one kind share a code path, so a warp runs 4 collider
+//   paths. The team's scan of their counts of included contacts gives each
+//   call its first contact and couple_row. Each call's lane stages its
+//   contacts (point, distance, frame) in the row store's solver scratch,
+//   and the contacts are dealt to the lanes, which write their rows: one
+//   round for 32 lanes. Writing a call's rows on the lane that ran it cost
+//   the Env03-v2 main path's impact steps 13% at 4096 (8 box-box contacts
+//   in turn on one lane; PERF.md).
 // - The solver's row loops run over the team's lanes with shuffle sums;
 //   the lanes own the Hessian's 105 lower-triangle entries and the 14
-//   gradient entries and walk the active rows for them.
+//   gradient entries and walk the active rows for them. Every
+//   instantiation takes its sums as 32 lanes would (Team's W = SUM_LANES:
+//   a team of 8 keeps 4 partials per lane), and every other sum is taken
+//   by one lane in row order, so an env's bits do not depend on the batch:
+//   the oracle's replay at F gives what its generations scored at F x 128.
 // - M is block-diagonal, and so is the Newton H while no chassis-block or
 //   wheel-block row (the rows from `couple_row` on) is active: then H is
 //   factorized as 8x8 and 6x6, unrolled in registers, which gives the
@@ -51,25 +58,52 @@
 //   zeros). When one is active (the block touching the robot) every lane
 //   factorizes the full 14x14 H, unrolled in registers.
 //
-// What bounds it on an H100: the latency of each team's serial chain, not
+// Three instantiations of the one source, chosen by batch size in the
+// wrapper (cuda_block.py), which reads the choice from k2_launch_config.
+// Each takes the widest team whose warps fit one per scheduler (4 per SM on
+// 132 SMs); from there on a wider team's redundant serial work (fk, CRB,
+// RNE and the factorizations on every lane) queues at the schedulers:
+// - below MID envs (the evals at 512, cli test at B = 1), a team of TEAM =
+//   32 lanes, one env per warp: the row loops and the Hessian's entries
+//   split 32 ways, and no env waits on another's path (its row count,
+//   box-box's manifold, the coupled factorization) at the team's syncs;
+// - from MID to CROSSOVER envs (the training and DAgger collects and the
+//   flagship serving at 1024, the MPC expert's plan rollouts, 64
+//   candidates per state), a team of MID_TEAM = 16 lanes, 2 envs per warp;
+// - from CROSSOVER envs on (the 4096-env main path, the oracle's 1,792), a
+//   team of MAIN_TEAM = 8 lanes, 4 envs per warp, 38.7 KB of rows per block
+//   in float (5 blocks per SM), where 32 lanes would take several waves.
+// What bounds it on an H100: the latency of each env's serial chain, not
 // operations or bytes. The fk/CRB/RNE, the colliders and the small
 // factorizations are one long dependent chain of scalar float math on
 // every lane (no matrix product for the tensor cores, and float32 physics
 // rules out TF32); about 240 bytes per env per control step cross device
-// memory. The work that stays serial on every lane (the coupled 14x14
-// factorization and box-box's manifold when the block meets the robot)
-// is paid once per env-chain, so more envs per SM matter as much as
-// shorter row loops: 8 lanes give 4 envs per warp, and shared memory
-// allows 5 warps, 20 envs, per SM. Registers (255 a thread, with spills)
-// would allow 8 warps; capping them at 168 or 128 made the float kernel
-// spill 4-6x as much and lost more than the extra warps won (PERF.md).
+// memory. 255 registers a thread leave 8 one-warp blocks per SM. Timed in
+// turns on an H100 80GB HBM3 at 700 W
+// (tools/time_kernels.py; PERF.md), ms at B = 1 / 512 / 1024 / 2048 / 4096
+// on the Env03-v2 main path's states, fast grade: 32 lanes 13.97 / 14.66
+// / 18.21 / 35.61 / 69.66; 16 lanes 14.48 / 17.36 / 18.25 / 23.98 /
+// 42.48; 8 lanes 15.30 / 20.25 / 22.16 / 25.07 / 41.81; the one-team
+// design before (8 lanes, every lane running every collider) 15.86 / 20.38
+// / 22.49 / 25.48 / 43.95. Exact grade: 32 lanes 25.65 / 28.12 / 35.45 /
+// 68.51 / 135.42; 16 lanes 26.66 / 32.58 / 34.71 / 44.28 / 80.34; 8 lanes
+// 27.30 / 38.18 / 41.85 / 46.72 / 76.93; before 27.76 / 37.50 / 41.48 /
+// 46.74 / 77.56. Where the envs of a batch run in lockstep (the MPC
+// expert's 14 states x 64 candidates, B = 896), 32 lanes read 21.69 ms
+// fast and 46.13 exact, 16 lanes 19.05 / 36.28, 8 lanes 20.12 / 35.93, the
+// design before 20.89 / 36.50; at 8 x 64 = 512 (one warp per scheduler)
+// 32 lanes 15.64 / 33.30 against 8 lanes' 20.32 / 35.99. On the main
+// path's states at 640 / 768 / 896, 32 lanes 16.90 / 17.88 / 18.44, 16
+// lanes 17.20 / 17.87 / 18.30. Capping registers at 168 or 128 made the float kernel
+// spill 4-6x as much and lost more than the extra warps won.
 //
-// ptxas (-Xptxas -v, nvcc 12.8, sm_90a): float kernel 255 registers, 2,208
-// bytes stack frame (the collider candidates, indexed by lane), 532 bytes
-// spill stores, 1,616 bytes spill loads; double kernel 255 registers, 5,344
-// bytes stack frame, 3,676 / 9,600 bytes spilled (the one-thread-per-env
-// design before: float 255 registers, 13,968 bytes stack with the row
-// arrays).
+// ptxas (-Xptxas -v, nvcc 12.8, sm_90a), 255 registers for every kernel:
+// float, 32 lanes: 1,712 bytes stack frame, 400 / 1,340 bytes spill
+// stores / loads; float, 8 lanes: 1,760, 472 / 1,492; double, 32 lanes:
+// 4,448, 3,320 / 8,952; double, 8 lanes: 4,560, 3,496 / 9,140; 16 lanes:
+// float 1,712, 368 / 1,088, double 4,512, 3,444 / 9,096 (the
+// one-team design before: float 2,208, 532 / 1,616, the collider
+// candidates indexed by lane; double 5,344, 3,676 / 9,600).
 //
 // The same templated code also runs on the host with `Counted` and a team
 // of one lane: k2_count_ops gives the operation count behind the kernel's
@@ -87,23 +121,46 @@ using namespace brt;
 constexpr int NV = 14;
 constexpr int MAXCON = 30;
 constexpr int MAXROW = 4 * MAXCON;
-// The team size and the blocks per SM that registers are capped for
-// (__launch_bounds__): 8 lanes and no cap (255 registers a thread) ran the
-// Env03-v2 main path fastest of the variants timed together, 15% ahead of
-// 16 lanes, which are 18% faster at the flagship serving's 1024 envs at
-// the exact grade (PERF.md); a cap spills more than the extra warps win.
+// The small-batch team, the batch from which MID_TEAM runs instead, the
+// batch from which MAIN_TEAM runs, and the blocks per SM that registers
+// are capped for (__launch_bounds__; see above); only
+// tools/time_kernels.py overrides them.
 #ifndef BRT_K2_TEAM
-#define BRT_K2_TEAM 8
+#define BRT_K2_TEAM 32
+#endif
+#ifndef BRT_K2_MID
+#define BRT_K2_MID 529
+#endif
+#ifndef BRT_K2_MID_TEAM
+#define BRT_K2_MID_TEAM 16
+#endif
+#ifndef BRT_K2_CROSSOVER
+#define BRT_K2_CROSSOVER 1057
 #endif
 #ifndef BRT_K2_MINB
 #define BRT_K2_MINB 1
 #endif
-constexpr int TEAM = BRT_K2_TEAM;     // lanes per env
-constexpr int ENVS = THREADS / TEAM;   // envs per block of one warp
-static_assert(TEAM >= 1 && TEAM <= 32 && (TEAM & (TEAM - 1)) == 0,
-              "the team is a power of two inside one warp");
+constexpr int TEAM = BRT_K2_TEAM;
+constexpr int MAIN_TEAM = 8;
+constexpr int CROSSOVER = BRT_K2_CROSSOVER;
+constexpr int MID = BRT_K2_MID;
+constexpr int MID_TEAM = BRT_K2_MID_TEAM;
+static_assert(TEAM >= 1 && TEAM <= 32 && (TEAM & (TEAM - 1)) == 0 &&
+                  MID_TEAM >= 1 && MID_TEAM <= 32 &&
+                  (MID_TEAM & (MID_TEAM - 1)) == 0,
+              "a team is a power of two inside one warp");
+// Every instantiation takes its row sums as a team of 32 lanes would
+// (Team's W): the bits of an env's step do not depend on the batch.
+constexpr int SUM_LANES = 32;
+constexpr int NCALL = 7;         // collider calls per substep
+constexpr int COUPLE_CALL = 4;   // the first call of a robot-block pair
 template <typename T>
 using Rows = TeamRows<T, NV, MAXROW>;
+
+// The lanes per env of a launch of B envs.
+inline int team_for(int B) {
+  return B >= CROSSOVER ? MAIN_TEAM : B >= MID ? MID_TEAM : TEAM;
+}
 
 struct Params14 {
   Params robot;
@@ -118,6 +175,35 @@ struct Scene {
   T pos_b[3];
   T Rb[3][3];
 };
+
+BRT_HD int as_int(float x) { return int(x); }
+BRT_HD int as_int(double x) { return int(x); }
+BRT_HD int as_int(Counted x) { return int(x.v); }
+
+// The contacts between the colliders and their rows: contact q's call,
+// point, distance and frame (the normal alone where its rows make the
+// tangents), kept in the row store's solver scratch (its columns from
+// jar on), which team_solve fills only after the rows are written.
+template <typename T>
+struct Staged {
+  static constexpr int N = 14;   // values per contact
+  T* base;
+  BRT_HD T* at(int q) const {
+    BRT_REQUIRE(q >= 0 && q < MAXCON);
+    return base + q * N;
+  }
+  BRT_HD T* pos(int q) const { return at(q); }
+  BRT_HD T& dist(int q) const { return at(q)[3]; }
+  BRT_HD T* n(int q) const { return at(q) + 4; }
+  BRT_HD T* t1(int q) const { return at(q) + 7; }
+  BRT_HD T* t2(int q) const { return at(q) + 10; }
+  // the call, kept as a value of T (exact for these small integers)
+  BRT_HD void set_call(int q, int c) const { at(q)[13] = T(double(c)); }
+  BRT_HD int call(int q) const { return as_int(at(q)[13]); }
+};
+static_assert(MAXCON * Staged<float>::N <=
+                  Rows<float>::SIZE - Rows<float>::JAR * Rows<float>::RS,
+              "the staged contacts fit the row store's scratch");
 
 // The 4 rows of one contact of the block at `cpos` with distance `dist`
 // (margin already subtracted) in frame (n, t1, t2): +J on the block's 6
@@ -149,9 +235,6 @@ BRT_HD void block_rows(const R& rows, int r, const T cpos[3], T dist,
                    T(prm.dA1), T(prm.dA2), prm, qvel);
 }
 
-// bits below bit c
-BRT_HD unsigned below(int c) { return (1u << c) - 1u; }
-
 // ------------------------------------------------------- one substep
 template <typename T, class Tm>
 BRT_HD void substep(const Tm& tm, const Rows<T>& rw, T qpos[16], T qvel[14],
@@ -181,80 +264,126 @@ BRT_HD void substep(const Tm& tm, const Rows<T>& rw, T qpos[16], T qvel[14],
     mass_solve<T, NV>(L8, mb, Ib, qfrc_smooth, a_smooth);
   }
 
-  // ---- contacts, computed by every lane: robot-floor (2 x 4 wheel, 8
-  // chassis corners), block-floor (8 corners), chassis-block (box-box, up
-  // to 8), wheel-block (2 x 3)
+  // ---- contacts: NCALL collider calls, call c on lane c mod G: 0, 1 the
+  // left and right wheel on the floor (plane-cylinder, 4 candidates each),
+  // 2 the chassis and 3 the block on the floor (plane-box, the deepest 4 of
+  // 8 corners, the block's with its margin), 4 chassis-block (box-box, up to
+  // 8), 5, 6 the left and right wheel on the block (box-cylinder, 3 each).
+  // Calls of one kind share their code path, their arguments chosen by
+  // value, so a warp runs 4 collider paths, not 7. The team's scan of the
+  // calls' counts of included contacts, in call order, gives each call its
+  // first contact, so the contacts keep the serial order robot-floor,
+  // block-floor, chassis-block, wheel-block, each call's in their own
+  // order; the scan's partial total (the calls before COUPLE_CALL, packed
+  // above bit 8) gives couple_row. The lane that ran a call stages its
+  // contacts; then the contacts are dealt to the lanes, contact q on lane
+  // q mod G, which write its 4 rows.
+  constexpr int G = Tm::G;
   const T margin = T(P.block_margin);
   const T axis[3] = {k.R[0][0], k.R[1][0], k.R[2][0]};
   const T bhalf[3] = {T(P.block_half), T(P.block_half), T(P.block_half)};
+  const T chalf[3] = {T(CH_HX), T(CH_HY), T(CH_HZ)};
   T cc[3];
   for (int a = 0; a < 3; ++a) cc[a] = k.pos[a] + k.R[a][2] * T(CH_OFF);
-  T fpos[16][3], fdist[16], bfpos[8][3], bfdist[8];
-  bool finc[16], bfinc[8];
-  plane_cylinder(k.xl, axis, fpos, fdist, finc);
-  plane_cylinder(k.xr, axis, fpos + 4, fdist + 4, finc + 4);
-  plane_box(cc, k.R, CH_HX, CH_HY, CH_HZ, T(0.0), fpos + 8, fdist + 8,
-            finc + 8);
-  plane_box(s.pos_b, s.Rb, P.block_half, P.block_half, P.block_half, margin,
-            bfpos, bfdist, bfinc);
-  const T chalf[3] = {T(CH_HX), T(CH_HY), T(CH_HZ)};
-  T bpos[8][3], bdist[8], bn[3], bt1[3], bt2[3];
-  const int nbox = box_box(cc, k.R, chalf, s.pos_b, s.Rb, bhalf, margin,
-                           bpos, bdist, bn, bt1, bt2);
-  T wpos[6][3], wdist[6], wn[6][3];
-  bool winc[6];
-  box_cylinder(s.pos_b, s.Rb, bhalf, k.xl, axis, T(WHEEL_R), T(WHEEL_H),
-               margin, wpos, wdist, winc, wn);
-  box_cylinder(s.pos_b, s.Rb, bhalf, k.xr, axis, T(WHEEL_R), T(WHEEL_H),
-               margin, wpos + 3, wdist + 3, winc + 3, wn + 3);
-  unsigned fmask = 0, bfmask = 0, wmask = 0;
-  for (int c = 0; c < 16; ++c) fmask |= finc[c] ? 1u << c : 0u;
-  for (int c = 0; c < 8; ++c) bfmask |= bfinc[c] ? 1u << c : 0u;
-  for (int c = 0; c < 6; ++c) wmask |= winc[c] ? 1u << c : 0u;
-  const int n_f = popc(fmask), n_bf = popc(bfmask);
-  const int couple_row = 4 * (n_f + n_bf);     // first robot-block row
-  const int nrow = couple_row + 4 * (nbox + popc(wmask));
-
-  // ---- rows of the included contacts only, in the order robot-floor,
-  // block-floor, chassis-block, wheel-block (the candidates' own order
-  // within each); each group's candidates are dealt to the lanes in turn
-  // and an included one goes to the slot its included predecessors leave
+  const Staged<T> st{&rw.jar(0)};
+  int ncon = 0, ncouple = 0;
   tm.sync();   // every lane is done with the last substep's rows
-  constexpr int G = Tm::G;
 #pragma unroll 1
-  for (int c = tm.lane; c < 16; c += G)
-    if ((fmask >> c) & 1u) {
-      const int body = c < 4 ? 1 : (c < 8 ? 2 : 0);
-      const ContactP& prm = body ? p.wheel : p.chassis;
-      robot_floor_rows<T, NV>(rw, 4 * popc(fmask & below(c)), fpos[c],
-                              fdist[c], body, T(prm.mu1), T(prm.mu2),
-                              T(prm.dA1), T(prm.dA2), prm, k, qvel);
+  for (int c0 = 0; c0 < NCALL; c0 += G) {
+    const int c = c0 + tm.lane;
+    T pos[8][3], dist[8], n[3], t1[3], t2[3], wn[3][3];
+    bool inc[8];
+    for (int i = 0; i < 8; ++i) inc[i] = false;
+    if (c < 2) {
+      T x[3];
+      for (int a = 0; a < 3; ++a) x[a] = c == 0 ? k.xl[a] : k.xr[a];
+      plane_cylinder(x, axis, pos, dist, inc);
+    } else if (c < 4) {
+      const bool ch = c == 2;
+      T x[3], R[3][3];
+      for (int a = 0; a < 3; ++a) {
+        x[a] = ch ? cc[a] : s.pos_b[a];
+        for (int b = 0; b < 3; ++b) R[a][b] = ch ? k.R[a][b] : s.Rb[a][b];
+      }
+      plane_box(x, R, ch ? CH_HX : P.block_half, ch ? CH_HY : P.block_half,
+                ch ? CH_HZ : P.block_half, ch ? T(0.0) : margin, pos, dist,
+                inc);
+    } else if (c == COUPLE_CALL) {
+      const int nbox = box_box(cc, k.R, chalf, s.pos_b, s.Rb, bhalf, margin,
+                               pos, dist, n, t1, t2);
+      for (int i = 0; i < 8; ++i) inc[i] = i < nbox;
+    } else if (c < NCALL) {
+      T x[3];
+      for (int a = 0; a < 3; ++a) x[a] = c == 5 ? k.xl[a] : k.xr[a];
+      box_cylinder(s.pos_b, s.Rb, bhalf, x, axis, T(WHEEL_R), T(WHEEL_H),
+                   margin, pos, dist, inc, wn);
     }
-  {
-    const T fn[3] = {T(0.0), T(0.0), T(1.0)};
-    const T ft1[3] = {T(0.0), T(1.0), T(0.0)};
-    const T ft2[3] = {T(-1.0), T(0.0), T(0.0)};
-#pragma unroll 1
-    for (int c = tm.lane; c < 8; c += G)
-      if ((bfmask >> c) & 1u)
-        block_rows(rw, 4 * (n_f + popc(bfmask & below(c))), bfpos[c],
-                   bfdist[c] - margin, fn, ft1, ft2, -1, P.block_floor, s,
-                   qvel);
+    int cnt = 0;
+    for (int i = 0; i < 8; ++i) cnt += inc[i] ? 1 : 0;
+    int total;
+    int q = ncon + (tm.excl_scan(cnt + (c < COUPLE_CALL ? cnt << 8 : 0),
+                                 total) & 0xff);
+    ncon += total & 0xff;
+    ncouple += total >> 8;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (!inc[i]) continue;
+      st.set_call(q, c);
+      for (int a = 0; a < 3; ++a) st.pos(q)[a] = pos[i][a];
+      st.dist(q) = dist[i];
+      if (c == COUPLE_CALL) {
+        for (int a = 0; a < 3; ++a) {
+          st.n(q)[a] = n[a];
+          st.t1(q)[a] = t1[a];
+          st.t2(q)[a] = t2[a];
+        }
+      } else if (c > COUPLE_CALL && i < 3) {
+        for (int a = 0; a < 3; ++a) st.n(q)[a] = wn[i][a];
+      }
+      ++q;
+    }
   }
-#pragma unroll 1
-  for (int c = tm.lane; c < nbox; c += G)
-    block_rows(rw, couple_row + 4 * c, bpos[c], bdist[c] - margin, bn, bt1,
-               bt2, 0, P.block_chassis, s, qvel);
-#pragma unroll 1
-  for (int c = tm.lane; c < 6; c += G)
-    if ((wmask >> c) & 1u) {
-      T t1[3], t2[3];
-      make_frame(wn[c], t1, t2);
-      block_rows(rw, couple_row + 4 * (nbox + popc(wmask & below(c))),
-                 wpos[c], wdist[c] - margin, wn[c], t1, t2, c < 3 ? 1 : 2,
-                 P.block_wheel, s, qvel);
-    }
   tm.sync();
+#pragma unroll 1
+  for (int q = tm.lane; q < ncon; q += G) {
+    const int c = st.call(q);
+    T cpos[3];
+    for (int a = 0; a < 3; ++a) cpos[a] = st.pos(q)[a];
+    const T dist = st.dist(q);
+    if (c < 3) {
+      const int body = c == 2 ? 0 : c + 1;
+      const ContactP& prm = body ? p.wheel : p.chassis;
+      robot_floor_rows<T, NV>(rw, 4 * q, cpos, dist, body, T(prm.mu1),
+                              T(prm.mu2), T(prm.dA1), T(prm.dA2), prm, k,
+                              qvel);
+    } else {
+      T fn[3], ft1[3], ft2[3];
+      if (c == 3) {   // the floor's frame
+        for (int a = 0; a < 3; ++a) fn[a] = ft1[a] = ft2[a] = T(0.0);
+        fn[2] = T(1.0);
+        ft1[1] = T(1.0);
+        ft2[0] = T(-1.0);
+      } else {
+        for (int a = 0; a < 3; ++a) fn[a] = st.n(q)[a];
+        if (c == COUPLE_CALL) {
+          for (int a = 0; a < 3; ++a) {
+            ft1[a] = st.t1(q)[a];
+            ft2[a] = st.t2(q)[a];
+          }
+        } else {
+          make_frame(fn, ft1, ft2);
+        }
+      }
+      block_rows(rw, 4 * q, cpos, dist - margin, fn, ft1, ft2,
+                 c == 3 ? -1 : c - COUPLE_CALL,
+                 c == 3 ? P.block_floor
+                        : (c == COUPLE_CALL ? P.block_chassis
+                                            : P.block_wheel),
+                 s, qvel);
+    }
+  }
+  tm.sync();
+  const int nrow = 4 * ncon, couple_row = 4 * ncouple;
 
   team_solve<T, NV, MAXROW>(tm, rw, nrow, couple_row, Mr, mb, Ib, a_smooth,
                             qfrc_smooth, dfdv, p, newton_iters, ls_iters,
@@ -274,15 +403,17 @@ BRT_HD void control_step_one(const Tm& tm, const Rows<T>& rw, T q[16],
     substep(tm, rw, q, v, w, c, p, newton_iters, ls_iters);
 }
 
+// Dynamic shared memory per block of the instantiation with G lanes per
+// env: each env's rows in its slice.
 template <typename T>
-constexpr int smem_bytes() {
-  return ENVS * Rows<T>::SIZE * (int)sizeof(T);
+constexpr int smem_bytes(int G) {
+  return THREADS / G * Rows<T>::SIZE * (int)sizeof(T);
 }
 
 #ifdef __CUDACC__
-// One warp per block, ENVS teams of TEAM lanes, one env per team; each
+// One warp per block, THREADS / G teams of G lanes, one env per team; each
 // team's rows in its slice of the block's dynamic shared memory.
-template <typename T>
+template <typename T, int G>
 __global__ void __launch_bounds__(THREADS, BRT_K2_MINB) control_step14_kernel(
     const T* __restrict__ qpos, const T* __restrict__ qvel,
     const T* __restrict__ ws, const T* __restrict__ ctrl,
@@ -290,11 +421,11 @@ __global__ void __launch_bounds__(THREADS, BRT_K2_MINB) control_step14_kernel(
     T* __restrict__ ws_out, int B, Params14 p, int newton_iters,
     int ls_iters, int frame_skip) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int team = threadIdx.x / TEAM;
-  const int i = blockIdx.x * ENVS + team;
+  const int team = threadIdx.x / G;
+  const int i = blockIdx.x * (THREADS / G) + team;
   if (i >= B) return;
-  const Team<TEAM> tm{(int)threadIdx.x % TEAM,
-                      team_mask(TEAM, threadIdx.x % 32)};
+  const Team<G, SUM_LANES> tm{(int)threadIdx.x % G,
+                              team_mask(G, threadIdx.x % 32)};
   const Rows<T> rw{reinterpret_cast<T*>(smem) + team * Rows<T>::SIZE};
   T q[16], v[14], w[14], c[2];
   for (int k = 0; k < 16; ++k) q[k] = qpos[16 * i + k];
@@ -314,18 +445,43 @@ __global__ void __launch_bounds__(THREADS, BRT_K2_MINB) control_step14_kernel(
   }
 }
 
+template <typename T, int G>
+int launch_team(const T* qpos, const T* qvel, const T* ws, const T* ctrl,
+                T* qpos_out, T* qvel_out, T* ws_out, int B,
+                const Params14* p, int newton_iters, int ls_iters,
+                int frame_skip, void* stream) {
+  const int smem = smem_bytes<T>(G);
+  int err = allow_smem(control_step14_kernel<T, G>, smem);
+  if (err) return err;
+  const int envs = THREADS / G;
+  const int blocks = (B + envs - 1) / envs;
+  control_step14_kernel<T, G>
+      <<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+          qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out, B, *p,
+          newton_iters, ls_iters, frame_skip);
+  return (int)cudaGetLastError();
+}
+
+// `team` picks the instantiation: TEAM, MID_TEAM or MAIN_TEAM lanes per
+// env.
 template <typename T>
 int launch(const T* qpos, const T* qvel, const T* ws, const T* ctrl,
            T* qpos_out, T* qvel_out, T* ws_out, int B, const Params14* p,
-           int newton_iters, int ls_iters, int frame_skip, void* stream) {
-  const int smem = smem_bytes<T>();
-  int err = allow_smem(control_step14_kernel<T>, smem);
-  if (err) return err;
-  const int blocks = (B + ENVS - 1) / ENVS;
-  control_step14_kernel<T><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out, B, *p, newton_iters,
-      ls_iters, frame_skip);
-  return (int)cudaGetLastError();
+           int newton_iters, int ls_iters, int frame_skip, int team,
+           void* stream) {
+  if (team == TEAM)
+    return launch_team<T, TEAM>(qpos, qvel, ws, ctrl, qpos_out, qvel_out,
+                                ws_out, B, p, newton_iters, ls_iters,
+                                frame_skip, stream);
+  if (team == MAIN_TEAM)
+    return launch_team<T, MAIN_TEAM>(qpos, qvel, ws, ctrl, qpos_out,
+                                     qvel_out, ws_out, B, p, newton_iters,
+                                     ls_iters, frame_skip, stream);
+  if (team == MID_TEAM)
+    return launch_team<T, MID_TEAM>(qpos, qvel, ws, ctrl, qpos_out,
+                                    qvel_out, ws_out, B, p, newton_iters,
+                                    ls_iters, frame_skip, stream);
+  return (int)cudaErrorInvalidValue;
 }
 #endif
 
@@ -335,32 +491,40 @@ extern "C" {
 
 #ifdef __CUDACC__
 // Launch K2 on `stream` for B envs (row-major (B,16)/(B,14)/(B,14)/(B,2)
-// inputs). Returns the CUDA error of the launch, 0 if none.
+// inputs) with `team` lanes per env, as k2_launch_config gives it for B.
+// Returns the CUDA error of the launch, 0 if none.
 int k2_control_step_f32(const float* qpos, const float* qvel, const float* ws,
                         const float* ctrl, float* qpos_out, float* qvel_out,
                         float* ws_out, int B, const k2::Params14* p,
                         int newton_iters, int ls_iters, int frame_skip,
-                        void* stream) {
+                        int team, void* stream) {
   return k2::launch(qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out, B, p,
-                    newton_iters, ls_iters, frame_skip, stream);
+                    newton_iters, ls_iters, frame_skip, team, stream);
 }
 
 int k2_control_step_f64(const double* qpos, const double* qvel,
                         const double* ws, const double* ctrl,
                         double* qpos_out, double* qvel_out, double* ws_out,
                         int B, const k2::Params14* p, int newton_iters,
-                        int ls_iters, int frame_skip, void* stream) {
+                        int ls_iters, int frame_skip, int team,
+                        void* stream) {
   return k2::launch(qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out, B, p,
-                    newton_iters, ls_iters, frame_skip, stream);
+                    newton_iters, ls_iters, frame_skip, team, stream);
 }
 #endif
 
-// The card's launch shape: lanes per env, envs per block and dynamic
+// The batch from which a launch takes MAIN_TEAM lanes per env.
+int k2_crossover() { return k2::CROSSOVER; }
+
+// The batch from which a launch takes MID_TEAM lanes per env.
+int k2_mid_crossover() { return k2::MID; }
+
+// The launch shape for B envs: lanes per env, envs per block and dynamic
 // shared memory per block for float (f64 = 0) or double (f64 = 1).
-void k2_launch_config(int f64, int* team, int* envs, int* smem) {
-  *team = k2::TEAM;
-  *envs = k2::ENVS;
-  *smem = f64 ? k2::smem_bytes<double>() : k2::smem_bytes<float>();
+void k2_launch_config(int f64, int B, int* team, int* envs, int* smem) {
+  *team = k2::team_for(B);
+  *envs = brt::THREADS / *team;
+  *smem = f64 ? k2::smem_bytes<double>(*team) : k2::smem_bytes<float>(*team);
 }
 
 // One env's control step on the host in double precision, as a team of one

@@ -616,11 +616,48 @@ BRT_HD void robot_neg_jac(const T cpos[3], int body, const T n[3],
 // redundantly on every lane and agree bit for bit. With G = 1 (the host's
 // `*_count_ops` builds, and K3's kernel for large batches) every team call
 // is the identity.
-template <int G_>
+// A team may take its row sums as a team of W lanes would (W a multiple of
+// G): row r adds to the partial of virtual lane r mod W, each lane holds
+// V = W / G of them, and `vsum` runs W's butterfly, its steps across a
+// lane's own partials first. Teams of any G with one W then give the same
+// bits (K2's instantiations). With W = G every call is as above: K1's
+// and K3's SASS is what it was before W but for the operand order of one
+// commutative add per kernel, with the same registers, stack and spills
+// (cuobjdump and ptxas, nvcc 12.8, sm_90a).
+template <int G_, int W_ = G_>
 struct Team {
   static constexpr int G = G_;
+  static constexpr int W = W_;
+  static constexpr int V = W / G;   // partials per lane
+  static_assert(W >= G && W % G == 0, "W is a multiple of the team");
   int lane;        // 0 .. G-1
   unsigned mask;   // the team's lanes in its warp
+  // f(row, k) for each of this lane's rows below n (row = lane, lane + G,
+  // ...), k its partial (row / G mod V)
+  template <class F>
+  BRT_HD void for_rows(int n, F&& f) const {
+#pragma unroll 1
+    for (int r0 = lane; r0 < n; r0 += W)
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        if (r0 + k * G < n) f(r0 + k * G, k);
+  }
+  // The sum over the virtual lanes of their partials p.
+  template <typename T>
+  BRT_HD T vsum(const T (&p)[V]) const {
+    T q[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) q[k] = p[k];
+#pragma unroll
+    for (int o = V / 2; o > 0; o >>= 1) {
+      T n[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) n[k] = q[k] + q[k ^ o];
+#pragma unroll
+      for (int k = 0; k < V; ++k) q[k] = n[k];
+    }
+    return sum(q[0]);
+  }
   template <typename T>
   BRT_HD T sum(T v) const {
 #ifdef __CUDA_ARCH__
@@ -843,17 +880,18 @@ BRT_HD void team_solve(const Tm& tm, const R& rw, int nrow, int couple_row,
       T c = T(0.0);
 #pragma unroll
       for (int r = 0; r < NV; ++r) c = c + T(0.5) * da[r] * Mda[r];
-      T q = T(0.0);
-#pragma unroll 1
-      for (int r = tm.lane; r < nrow; r += G) {
+      T q[Tm::V];
+#pragma unroll
+      for (int v = 0; v < Tm::V; ++v) q[v] = T(0.0);
+      tm.for_rows(nrow, [&](int r, int v) {
         T s = rw.J(r, 0) * aa[0];
 #pragma unroll
         for (int j = 1; j < NV; ++j) s = s + rw.J(r, j) * aa[j];
         s = s - rw.aref(r);
         T act = s < T(0.0) ? T(1.0) : T(0.0);
-        q = q + rw.D(r) * act * s * s;
-      }
-      cst[pick] = c + T(0.5) * tm.sum(q);
+        q[v] = q[v] + rw.D(r) * act * s * s;
+      });
+      cst[pick] = c + T(0.5) * tm.vsum(q);
     }
     bool better = cst[0] < cst[1];
 #pragma unroll
@@ -969,18 +1007,19 @@ BRT_HD void team_solve(const Tm& tm, const R& rw, int nrow, int couple_row,
     }
     T t = T(1.0);
     for (int ls = 0; ls < ls_iters; ++ls) {
-      T s1 = T(0.0), s2 = T(0.0);
-#pragma unroll 1
-      for (int row = tm.lane; row < nrow; row += G) {
+      T s1[Tm::V], s2[Tm::V];
+#pragma unroll
+      for (int v = 0; v < Tm::V; ++v) s1[v] = s2[v] = T(0.0);
+      tm.for_rows(nrow, [&](int row, int v) {
         T jd = rw.Jd(row);
         T jt = rw.jar(row) + t * jd;
         T act = jt < T(0.0) ? T(1.0) : T(0.0);
         T aDJd = act * (rw.D(row) * jd);
-        s1 = s1 + aDJd * jt;
-        s2 = s2 + aDJd * jd;
-      }
-      T phi1 = dMda + t * dMd + tm.sum(s1);
-      T phi2 = dMd + tm.sum(s2);
+        s1[v] = s1[v] + aDJd * jt;
+        s2[v] = s2[v] + aDJd * jd;
+      });
+      T phi1 = dMda + t * dMd + tm.vsum(s1);
+      T phi2 = dMd + tm.vsum(s2);
       t = t - phi1 / Max(phi2, T(MJ_MINVAL));
     }
     t = Max(t, T(0.0));

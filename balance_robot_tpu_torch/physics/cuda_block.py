@@ -11,6 +11,17 @@ the kernel's signature.
 tensors and runs the plain version for CPU tensors: the device of the
 state decides, and a CUDA call that cannot build or launch raises.
 
+The one source holds three instantiations of the kernel, and the batch
+size picks one, at the crossovers that the `.cu` header names: below the
+first (evals, B = 1), a team of 32 lanes per env, one env per warp; from
+it to the second (training collects, the MPC expert's plan rollouts), a
+team of 16 lanes, 2 envs per warp; from the second on (the 4096-env main
+path, the oracle's generations), a team of 8 lanes, 4 envs per warp. All
+take their row sums as 32 lanes would, so an env's bits do not depend on
+the batch. `launch_config(dtype, B)` reads the choice from the library
+(`k2_launch_config`), and the launch passes it on; there is no other way
+in.
+
 The kernel is built at first use by `kernel_build.py` (nvcc, ctypes).
 """
 
@@ -25,8 +36,10 @@ from ..utils import profiling
 
 LABEL, SOURCE = "k2", "control_step14.cu"    # library label, file in csrc/
 
-# kernel launches since import (or since a caller reset it to 0)
+# kernel launches since import (or since a caller reset it to 0), and the
+# same by the team (lanes per env) that each launch took
 launches = 0
+launches_by_team = {}
 # filled by build(): seconds, whether the library was reused, ptxas report
 build_info = {}
 _lib = None
@@ -90,16 +103,17 @@ def _bind(path):
     for name in ("k2_control_step_f32", "k2_control_step_f64"):
         fn = getattr(lib, name, None)
         if fn is not None:
-            fn.argtypes = [ptr] * 7 + [i32, P] + [i32] * 3 + [ptr]
+            fn.argtypes = [ptr] * 7 + [i32, P] + [i32] * 4 + [ptr]
             fn.restype = i32
     dptr = ctypes.POINTER(ctypes.c_double)
     lib.k2_count_ops.argtypes = [dptr] * 7 + [P] + [i32] * 3 \
         + [ctypes.POINTER(ctypes.c_longlong)]
     lib.k2_count_ops.restype = ctypes.c_longlong
-    fn = getattr(lib, "k2_launch_config", None)
-    if fn is not None:   # absent from a build of an earlier csrc/
-        fn.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
-        fn.restype = None
+    for name in ("k2_crossover", "k2_mid_crossover"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i32
+    lib.k2_launch_config.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 3
+    lib.k2_launch_config.restype = None
     return lib
 
 
@@ -114,16 +128,31 @@ def build(process=None):
     return _lib
 
 
-def launch_config(dtype):
-    """(lanes per env, envs per block, shared bytes per block) of K2's
-    launch for `dtype` (torch.float32 or torch.float64)."""
-    return cuda_step.read_launch_config(build().k2_launch_config, dtype)
+def crossover(lib=None):
+    """The batch from which K2 runs its main path's team (the `.cu`
+    header's BRT_K2_CROSSOVER)."""
+    return (lib or build()).k2_crossover()
+
+
+def mid_crossover(lib=None):
+    """The batch from which K2 runs its middle team (the `.cu` header's
+    BRT_K2_MID)."""
+    return (lib or build()).k2_mid_crossover()
+
+
+def launch_config(dtype, B, lib=None):
+    """(lanes per env, envs per block, shared bytes per block) of the
+    instantiation that a launch of B envs of `dtype` (torch.float32 or
+    torch.float64) takes. `lib`: as for `count_ops`."""
+    return cuda_step.read_launch_config(
+        (lib or build()).k2_launch_config, dtype, B)
 
 
 # ------------------------------------------------------------ launch
 
 def control_step14_cuda(qpos, qvel, ws, ctrl, params, frame_skip=250):
-    """Launch K2 on the current stream; CUDA tensors only."""
+    """Launch K2 on the current stream, with the instantiation that
+    `launch_config` names for the batch; CUDA tensors only."""
     global launches
     B = qpos.shape[0]
     cuda_step.check_kernel_args("K2", qpos, [
@@ -135,18 +164,20 @@ def control_step14_cuda(qpos, qvel, ws, ctrl, params, frame_skip=250):
     lib = build()
     fn = (lib.k2_control_step_f32 if qpos.dtype == torch.float32
           else lib.k2_control_step_f64)
+    team = launch_config(qpos.dtype, B, lib)[0]
     import ctypes
     with torch.cuda.device(qpos.device):
         stream = torch.cuda.current_stream().cuda_stream
-        with kernel_build.first_launch(fn.__name__):
+        with kernel_build.first_launch(f"{fn.__name__}/{team}"):
             err = fn(qpos.data_ptr(), qvel.data_ptr(), ws.data_ptr(),
                      ctrl.data_ptr(), qp.data_ptr(), qv.data_ptr(),
                      w.data_ptr(), B, ctypes.byref(kernel_params(params)),
-                     params.newton_iters, params.ls_iters, frame_skip,
+                     params.newton_iters, params.ls_iters, frame_skip, team,
                      stream)
     if err != 0:
         raise RuntimeError(f"K2 launch failed: CUDA error {err}")
     launches += 1
+    launches_by_team[team] = launches_by_team.get(team, 0) + 1
     return qp, qv, w
 
 

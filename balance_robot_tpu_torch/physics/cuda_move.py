@@ -145,11 +145,8 @@ def launch_config(dtype, B, lib=None):
     """(lanes per env, envs per block, shared bytes per block) of the
     instantiation that a launch of B envs of `dtype` (torch.float32 or
     torch.float64) takes. `lib`: as for `count_ops`."""
-    import ctypes
-    vals = [ctypes.c_int() for _ in range(3)]
-    (lib or build()).k3_launch_config(int(dtype == torch.float64), B,
-                                      *(ctypes.byref(v) for v in vals))
-    return tuple(v.value for v in vals)
+    return cuda_step.read_launch_config(
+        (lib or build()).k3_launch_config, dtype, B)
 
 
 # ------------------------------------------------------------ launch

@@ -152,12 +152,14 @@ def build(process=None):
     return _lib
 
 
-def read_launch_config(fn, dtype):
+def read_launch_config(fn, dtype, *extra):
     """(lanes per env, envs per block, shared bytes per block) from a
-    kernel's `k*_launch_config` entry `fn`, for `dtype`."""
+    kernel's `k*_launch_config` entry `fn`, for `dtype` and the entry's
+    `extra` arguments (K2's and K3's batch size)."""
     import ctypes
     vals = [ctypes.c_int() for _ in range(3)]
-    fn(int(dtype == torch.float64), *(ctypes.byref(v) for v in vals))
+    fn(int(dtype == torch.float64), *extra,
+       *(ctypes.byref(v) for v in vals))
     return tuple(v.value for v in vals)
 
 

@@ -21,8 +21,10 @@ Every rollout from a bank state reads its launch draws from one table of
 (`--horizon`, F, 6) uniforms drawn once from `--seed` + 999, the seed of
 the CEM noise too (`recovery.draw_table`): as the JAX states' own keys do,
 it gives all candidates of a state, every generation and the replay the
-same launches. One team of K2 per env makes a replay at batch F give the
-bits its sequence scored in a generation's batch of F x P.
+same launches. K2's bits for an env do not depend on the batch (each of
+its instantiations takes its row sums as 32 lanes would), so a replay at
+batch F gives the bits its sequence scored in a generation's batch of F x
+P.
 
 `--device cuda|cpu` takes the place of the JAX tool's `--platform`: left
 at its default it is the card, and it raises where there is no GPU.

@@ -7,7 +7,8 @@ Phases, in order; any failure exits non-zero before the final line:
   2. build: K1 (csrc/control_step.cu), K2 (csrc/control_step14.cu) and K3
      (csrc/control_step_walls.cu) with nvcc, all compiles started together,
      and ptxas's registers, stack and spills of each beside its launch
-     shape (K3: both instantiations, on each side of its crossover);
+     shape (K2's three and K3's two instantiations, each from the batch
+     at which it starts);
   3. each kernel against its plain PyTorch version on the card, B = 257
      (ragged), one control step (250 substeps), the same inputs on both
      sides: K1 on robot-floor states, K2 on robot + block states on which
@@ -821,13 +822,14 @@ def bound(ops_per_env, n_envs, tensors):
 
 def launch_shapes(module, dtype):
     """[(batches, (lanes per env, envs per block, shared bytes per block))]
-    of a kernel's launch: one shape, or K3's two instantiations, on each
-    side of its crossover."""
+    of a kernel's launch: one shape (K1), or one for each of K2's three or
+    K3's two instantiations, from the batch at which it starts."""
     if not hasattr(module, "crossover"):
         return [("", module.launch_config(dtype))]
-    X = module.crossover()
-    return [(f" B < {X}", module.launch_config(dtype, 1)),
-            (f" B >= {X}", module.launch_config(dtype, X))]
+    starts = [1, module.crossover()]
+    if hasattr(module, "mid_crossover"):   # K2
+        starts.insert(1, module.mid_crossover())
+    return [(f" B >= {B}", module.launch_config(dtype, B)) for B in starts]
 
 
 def print_build(name, module):
@@ -866,6 +868,8 @@ def build_kernels():
 def zero_counts(modules):
     for m in modules.values():
         m.launches = 0
+        if hasattr(m, "launches_by_team"):   # K2
+            m.launches_by_team.clear()
 
 
 def counts_of(modules):
@@ -902,9 +906,16 @@ def run_main_path(vec, policy, gen, modules, kernel, after_step=None):
     check(all(finite), "main path produced non-finite values")
     check(obs.shape == (N_ENVS, vec.env.obs_dim),
           f"obs shape {tuple(obs.shape)}")
+    by_team = ""
+    if hasattr(modules[kernel], "launches_by_team"):   # K2
+        teams = dict(modules[kernel].launches_by_team)
+        team = modules[kernel].launch_config(torch.float32, N_ENVS)[0]
+        check(teams == {team: N_STEPS}, f"{vec.env.id} main path: "
+              f"{kernel}'s launches by team {teams}, not all on {team}")
+        by_team = f", by team {teams}"
     print(f"main path {vec.env.id}: {N_ENVS} envs x {N_STEPS} steps in "
           f"{seconds:.3f} s = {N_ENVS * N_STEPS / seconds:.1f} env-steps/s "
-          f"({kernel} launches {counts[kernel]}, mean reward "
+          f"({kernel} launches {counts[kernel]}{by_team}, mean reward "
           f"{rewards.mean().item():.4f})")
     return states, obs, counts
 
@@ -1226,8 +1237,8 @@ def hold_on_path(modules, kernel, what, kept, ws_vs_f64=False):
         *(a[:16].cpu() if torch.is_tensor(a) else a for a in args),
         **kwargs)[0]))
     b = bound(ops, B, tensors + list(k))
-    team = (module.launch_config(torch.float32, B) if kernel == "K3"
-            else module.launch_config(torch.float32))[0]
+    team = (module.launch_config(torch.float32) if kernel == "K1"
+            else module.launch_config(torch.float32, B))[0]
     print(f"{kernel} B={B} f32 on {what} (a team of {team} lanes): median "
           f"{ms:.3f} ms over {TIMED_LAUNCHES} launches; plain "
           f"{plain_ms:.1f} ms ({str(p[0].dtype)[6:]}); "
@@ -1894,9 +1905,11 @@ def parallel_phase(modules):
         _, key, equal = _largest_gap(ranks[0], ranks[1])
         check(equal, f"10b {name}: the ranks' train states differ ({key})")
         gap, key, equal = _largest_gap(ranks[0], single[name])
-        # each env's chain in K1 and K2 is its own, their launch shape
-        # depends on the dtype alone, and the policy's products per row
-        # do not depend on the batch here: any gap is a finding (PERF.md)
+        # each env's chain in K1 and K2 is its own, K1's launch shape
+        # depends on the dtype alone, K2's bits not on its team (its row
+        # sums are 32 lanes' at any batch), and the policy's products per
+        # row do not depend on the batch here: any gap is a finding
+        # (PERF.md)
         check(equal, f"10b {name}: two ranks depart from one process by "
               f"{gap:.3e} ({key})")
         print(f"parallel 10b {name}: {env_id} {str(dtype)[6:]}"
@@ -1904,7 +1917,7 @@ def parallel_phase(modules):
               f"{PAR_RANKS} x {n_local} envs over gloo on one card, {iters} "
               f"iteration(s), {kernel} launches {want[kernel]} per rank at B "
               f"= {n_local} (team, envs per block, shared bytes: "
-              f"{modules[kernel].launch_config(dtype)} at any B): the ranks' "
+              f"{launch_shapes(modules[kernel], dtype)}): the ranks' "
               f"train states and one process's at B = {PAR_ENVS} bit-equal "
               f"({len(ranks[0])} arrays); rank 0 took "
               f"{facts[0][name]['seconds']:.2f} s")
@@ -2824,7 +2837,9 @@ def research_13b(modules, tmp):
           and z["act"].shape == (n_traj * H, 2),
           f"13b: the dump's rows {z['obs'].shape} for {n_traj} trajectories")
     gens = [c for c in calls if c["B"] == F * P]
+    by_team = dict(modules["K2"].launches_by_team)
     print(f"research 13b oracle_probe: F = {F}; K2 launches {counts['K2']} "
+          f"(by team {by_team}) "
           f"= harvest {n_hv} (B = 512) + seed mean {H} (B = {F}) + "
           f"generations {ORACLE_ITERS} x {H} (B = {F * P}) + replay {H} "
           f"(B = {F}); {ms_per_launch(gens):.3f} ms per generation launch, "

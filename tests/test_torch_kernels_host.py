@@ -209,6 +209,65 @@ def test_k3_wrapper_launches_the_instantiation_the_header_names(
         assert cuda_move.launch_config(dtype, X, lib) == (1, 32, 0)
 
 
+def test_k2_wrapper_launches_the_instantiation_the_header_names(
+        host_libs, monkeypatch):
+    """The K2 wrapper hands the launch the team that the library's
+    k2_launch_config gives for the batch: the `.cu` header's small-batch
+    team below its first crossover, its middle team from there to the
+    second, the main path's team of 8 from the second on;
+    `launches_by_team` counts each launch under its team."""
+    lib = host_libs["k2"]
+    header = (kernel_build.CSRC / cuda_block.SOURCE).read_text()
+
+    def macro(name):
+        return int(re.search(rf"#define {name} (\d+)\n", header).group(1))
+
+    team, mid_team = macro("BRT_K2_TEAM"), macro("BRT_K2_MID_TEAM")
+    M, X = cuda_block.mid_crossover(lib), cuda_block.crossover(lib)
+    assert (team, mid_team) == (32, 16)
+    assert (macro("BRT_K2_MID"), macro("BRT_K2_CROSSOVER")) == (M, X)
+    assert 1 < M < 1024 < X <= 1792
+    batches = (1, M - 1, M, X - 1, X, 4096)
+    launched = []
+
+    class Lib:
+        """The host library, with a launch that records its team."""
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        def k2_control_step_f32(self, *args):
+            launched.append(args[-2])
+            return 0
+
+    monkeypatch.setattr(cuda_block, "_lib", Lib())
+    monkeypatch.setattr(cuda_block, "launches", 0)
+    monkeypatch.setattr(cuda_block, "launches_by_team", {})
+    monkeypatch.setattr(cuda_step, "check_kernel_args", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    for B in batches:
+        cuda_block.control_step14_cuda(
+            *(torch.zeros(B, n) for n in (16, 14, 14, 2)), bs.ENV03_PARAMS)
+    assert launched == [cuda_block.launch_config(torch.float32, B, lib)[0]
+                        for B in batches] == [team, team, mid_team,
+                                              mid_team, 8, 8]
+    assert cuda_block.launches == len(batches)
+    assert cuda_block.launches_by_team == {team: 2, mid_team: 2, 8: 2}
+    # each env keeps its 120 rows (19 columns of 121, 119 Hessian and
+    # gradient entries) in its slice of the block's shared memory: one env
+    # per one-warp block for the team of 32, 2 for the team of 16, 4 for
+    # the team of 8
+    size = 19 * 121 + 119
+    for dtype, nbytes in ((torch.float32, 4), (torch.float64, 8)):
+        for B, lanes in ((1, team), (M, mid_team), (X, 8)):
+            assert cuda_block.launch_config(dtype, B, lib) == (
+                lanes, 32 // lanes, 32 // lanes * size * nbytes)
+    assert cuda_block.launch_config(torch.float32, 1, lib)[2] == 9672
+    assert cuda_block.launch_config(torch.float64, 1, lib)[2] == 19344
+
+
 def test_a_header_edit_changes_both_kernels_hashes(tmp_path, monkeypatch):
     names = {mod.LABEL: [p.name for p in kernel_build.sources(mod.SOURCE)]
              for mod in KERNELS}

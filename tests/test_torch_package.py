@@ -336,21 +336,33 @@ def block_states(B, seed=0):
 
 @pytest.mark.cuda
 def test_k2_matches_plain_on_the_card():
-    """K2 against its plain version on the GPU (float64, ragged batch, a
-    short control step at both solver grades, every block contact kind
-    active), and a float32 launch at the serving batch."""
+    """K2 against its plain version on the GPU (float64, a short control
+    step at both solver grades, every block contact kind active) at B = 1,
+    at a ragged batch and on each side of both crossovers, so through all
+    three instantiations, each of them at a ragged batch, each launch
+    counted under its team; and a float32 launch at the main path's
+    batch."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (and nvcc to build K2)")
-    envs = cuda_block.launch_config(torch.float64)[1]   # per block
-    for B in (1, 61):
-        assert B == 1 or envs == 1 or B % envs
+    M, X = cuda_block.mid_crossover(), cuda_block.crossover()
+    team = cuda_block.launch_config(torch.float64, 1)[0]
+    mid_team = cuda_block.launch_config(torch.float64, M)[0]
+    assert team > mid_team > 8
+    ragged = set()
+    for B in (1, 61, M - 1, M, X - 1, X + 1):
+        cfg = cuda_block.launch_config(torch.float64, B)
+        assert cfg[0] == (team if B < M else mid_team if B < X else 8)
+        if cfg[1] == 1 or B % cfg[1]:
+            ragged.add(cfg[0])
         qpos, qvel, ctrl = block_states(B)
         for params in (bs.ENV03_PARAMS, fast_solver(bs.ENV03_PARAMS)):
             args = [t.cuda() for t in (qpos, qvel, torch.zeros_like(qvel),
                                        ctrl)]
             before = cuda_block.launches
+            by_team = cuda_block.launches_by_team.get(cfg[0], 0)
             out = cuda_block.control_step14(*args, params, frame_skip=40)
             assert cuda_block.launches == before + 1
+            assert cuda_block.launches_by_team[cfg[0]] == by_team + 1
             seen = {}
             ref = cuda_block.control_step14_plain(*args, params,
                                                   frame_skip=40,
@@ -359,15 +371,47 @@ def test_k2_matches_plain_on_the_card():
                 torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9)
             if B > 1:
                 assert all(int(v.sum()) > 0 for v in seen.values()), seen
+    assert ragged == {team, mid_team, 8}
     print(json.dumps(cuda_block.build_info["resources"]),
-          cuda_block.launch_config(torch.float32),
-          cuda_block.launch_config(torch.float64))
+          *(cuda_block.launch_config(torch.float32, B) for B in (1, M, X)))
     qpos, qvel, ctrl = block_states(4096, seed=1)
     args = [t.float().cuda() for t in (qpos, qvel, torch.zeros_like(qvel),
                                        ctrl)]
     out = cuda_block.control_step14(*args, fast_solver(bs.ENV03_PARAMS))
     torch.cuda.synchronize()
     assert all(torch.isfinite(t).all() for t in out)
+
+
+@pytest.mark.cuda
+def test_k2_bits_do_not_depend_on_the_batch():
+    """Every instantiation of K2 takes its row sums as a team of 32 lanes
+    would, so an env's control step gives the same bits at any batch: the
+    first envs of a launch above the second crossover (the team of 8) and
+    of one between the crossovers (the team of 16) against the same envs
+    alone (the team of 32) and one env at B = 1, in float32 and float64,
+    at both grades, on states in every contact regime."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc to build K2)")
+    M, X = cuda_block.mid_crossover(), cuda_block.crossover()
+    qpos, qvel, ctrl = block_states(X + 61, seed=5)
+    assert [cuda_block.launch_config(torch.float32, B)[0]
+            for B in (61, M + 61, X + 61)] == [32, 16, 8]
+    for dtype in (torch.float32, torch.float64):
+        args = [t.to("cuda", dtype) for t in (
+            qpos, qvel, torch.zeros_like(qvel), ctrl)]
+        for params in (bs.ENV03_PARAMS, fast_solver(bs.ENV03_PARAMS)):
+            big = cuda_block.control_step14_cuda(*args, params)
+            mid = cuda_block.control_step14_cuda(
+                *(t[:M + 61].contiguous() for t in args), params)
+            small = cuda_block.control_step14_cuda(
+                *(t[:61].contiguous() for t in args), params)
+            one = cuda_block.control_step14_cuda(
+                *(t[37:38].contiguous() for t in args), params)
+            torch.cuda.synchronize()
+            for a, m, b, c in zip(big, mid, small, one):
+                assert torch.equal(a[:61], b), (dtype, params.newton_iters)
+                assert torch.equal(m[:61], b), (dtype, params.newton_iters)
+                assert torch.equal(a[37:38], c)
 
 
 @pytest.mark.cuda
@@ -522,10 +566,11 @@ def test_k2_checked_build_on_the_card(monkeypatch):
     on chip_smoke.py's robot + block states (block parked, in flight,
     hitting the chassis edge and the wheels: the 8x8 + 6x6 factorization
     while no robot-block row is active, the coupled 14x14 one where one
-    is) at a ragged batch and at the flagship serving's batch, in float32
-    and float64, at both grades: two launches give the same bits, the
-    output agrees with the plain version, and every block collider was
-    active."""
+    is) at the eval's batch (the team of 32), at the flagship serving's
+    (the team of 16) and at a ragged batch above the second crossover (the
+    team of 8), in float32 and float64, at both grades: two launches give
+    the same bits, the output agrees with the plain version, and every
+    block collider was active."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (and nvcc to build K2)")
     import numpy as np
@@ -536,7 +581,10 @@ def test_k2_checked_build_on_the_card(monkeypatch):
         kernel_build.build("k2_checked", cuda_block.SOURCE, info,
                            defines=("-DBRT_CHECK_ROWS",))))
     print(json.dumps(info["resources"]))
-    for B in (257, 1024):
+    X = cuda_block.crossover()
+    assert [cuda_block.launch_config(torch.float32, B)[0]
+            for B in (512, 1024, X + 61)] == [32, 16, 8]
+    for B in (512, 1024, X + 61):
         qpos, qvel, ctrl = chip_smoke.random_states14(
             np.random.default_rng(4), B)
         for dtype in (torch.float32, torch.float64):

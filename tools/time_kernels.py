@@ -2,26 +2,33 @@
 turns, in one process on one GPU.
 
     python tools/time_kernels.py [--variant K2:BRT_K2_TEAM=8 ...]
-                                 [--old-csrc DIR] [--rounds 2] [--out FILE]
+                                 [--old-csrc DIR]
+                                 [--rounds 2] [--out FILE]
 
 Builds K1 (`csrc/control_step.cu`), K2 (`csrc/control_step14.cu`) and K3
-(`csrc/control_step_walls.cu`) as they are, once
-more for each --variant KERNEL:NAME=VALUE[:NAME=VALUE...] with those macros
+(`csrc/control_step_walls.cu`) as they are, once more for each --variant KERNEL:NAME=VALUE[:NAME=VALUE...] with those macros
 defined (`BRT_K1_TEAM` / `BRT_K2_TEAM` / `BRT_K3_TEAM`: lanes per env, for
-K3 below its crossover; `BRT_K1_MINB` / `BRT_K2_MINB`: the blocks per SM
-that `__launch_bounds__` asks registers for; `BRT_K3_CROSSOVER`: the batch from
-which K3 runs one lane per env, 0 for always, a large one for never), and,
+K2 and K3 below their (first) crossover; `BRT_K2_MID_TEAM`: K2's middle
+team; `BRT_K1_MINB` / `BRT_K2_MINB`: the blocks per SM that
+`__launch_bounds__` asks registers for; `BRT_K2_MID`, `BRT_K2_CROSSOVER` /
+`BRT_K3_CROSSOVER`: the batch from which K2 runs its middle team and its
+team of 8, and K3 one lane per env, 0 for always, a large one for never),
+and,
 with --old-csrc, from another checkout's `csrc/` directory (an earlier
-design with the same C interface, or for K3 the one of its one-thread
-design, which took no team), all nvcc runs started together. The inputs
+design with the same C interface, or for K2 and K3 the one of their
+designs that took no team), all nvcc runs started together. The inputs
 are the states chip_smoke.py times: the Env01-v2, Env03-v2 and EnvMove05-v1
 main paths (4096 envs, 25 steps of the checked-in policies, fast solver),
 run through the default build. Cases: K1 at B = 4096 and 256 (Env01
-serving's batch), fast grade; K2 at B = 4096, fast grade, and at B = 1024,
-exact grade (the flagship serving's batch and grade); K3 at B = 4096, 2048,
-1088, 1056 (one wave of its 32-lane team), 1024 and 512 (EnvMove05-v1
-serving's batch), fast grade, and at 512, exact grade; the first B envs
-of the main path's states, float32; K2 at B = 4096, fast grade, on
+serving's batch), fast grade; K2 at B = 1 (cli test), 512 (the evals),
+1024 (training and the flagship serving), 2048 and 4096, fast and exact
+grade, at 1,792 (the oracle's generations), fast grade, and at 896 on
+the MPC expert's lockstep batch (14 impact states x 64 candidates), fast
+and exact grade; K3 at B =
+4096, 2048, 1088, 1056 (one wave of its 32-lane team), 1024 and 512
+(EnvMove05-v1 serving's batch), fast grade, and at 512, exact grade; the
+first B envs of the main path's states, float32; K2 at B = 4096 and 512,
+fast grade, on
 chip_smoke.random_states14's impact states, where a third of the envs have
 the block against the robot (the 14 x 14 factorization of a coupled
 Hessian), and on the Env03-v2 main path's states after its first step
@@ -137,6 +144,41 @@ def serving_seconds(brt, grade):
     return time.perf_counter() - t0, float(rets.mean())
 
 
+class OldK2:
+    """A K2 library of the design with one team (its C interface: no team
+    argument, no k2_crossover, k2_launch_config without a batch) at
+    `path`, bound to the current wrapper's calls."""
+
+    def __init__(self, path):
+        from balance_robot_tpu_torch.physics import cuda_block
+        self.lib = lib = ctypes.CDLL(str(path))
+        P = ctypes.POINTER(cuda_block._params_struct())
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        for name in ("k2_control_step_f32", "k2_control_step_f64"):
+            getattr(lib, name).argtypes = [ptr] * 7 + [i32, P] \
+                + [i32] * 3 + [ptr]
+        lib.k2_launch_config.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
+        dptr = ctypes.POINTER(ctypes.c_double)
+        lib.k2_count_ops.argtypes = [dptr] * 7 + [P] + [i32] * 3 \
+            + [ctypes.POINTER(ctypes.c_longlong)]
+        lib.k2_count_ops.restype = ctypes.c_longlong
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    def k2_crossover(self):
+        return 0
+
+    def k2_launch_config(self, f64, B, team, envs, smem):
+        self.lib.k2_launch_config(f64, team, envs, smem)
+
+    def k2_control_step_f32(self, *args):
+        return self.lib.k2_control_step_f32(*args[:-2], args[-1])
+
+    def k2_control_step_f64(self, *args):
+        return self.lib.k2_control_step_f64(*args[:-2], args[-1])
+
+
 class OldK3:
     """A K3 library of the one-thread design (its C interface: no team
     argument, no k3_launch_config) at `path`, bound to the current wrapper's
@@ -180,15 +222,18 @@ def launch_shapes(mod, lib, dtype):
     """{batches: (lanes per env, envs per block, shared bytes per block)}
     of a build, or {} for a build without a launch-config entry."""
     from balance_robot_tpu_torch.physics import cuda_step
-    if mod.LABEL != "k3":
-        fn = getattr(lib, f"{mod.LABEL}_launch_config", None)
-        return {} if fn is None else {
-            "all": cuda_step.read_launch_config(fn, dtype)}
+    if mod.LABEL == "k1":
+        return {"all": cuda_step.read_launch_config(lib.k1_launch_config,
+                                                    dtype)}
     if isinstance(lib, OldK3):
         return {}
-    X = mod.crossover(lib)
-    return {f"B<{X}": mod.launch_config(dtype, 1, lib),
-            f"B>={X}": mod.launch_config(dtype, max(X, 1), lib)}
+    if isinstance(lib, OldK2):
+        return {"all": mod.launch_config(dtype, 1, lib)}
+    starts = {1, mod.crossover(lib)}
+    if mod.LABEL == "k2":
+        starts.add(mod.mid_crossover(lib))
+    return {f"B>={B}": mod.launch_config(dtype, B, lib)
+            for B in sorted(starts)}
 
 
 def with_lib(mod, lib, fn):
@@ -247,6 +292,9 @@ def main():
         if k == "K3" and not hasattr(ctypes.CDLL(str(path)),
                                      "k3_launch_config"):
             lib = OldK3(path)
+        elif k == "K2" and not hasattr(ctypes.CDLL(str(path)),
+                                       "k2_crossover"):
+            lib = OldK2(path)
         else:
             lib = mod._bind(path)
         libs[k, bname] = lib
@@ -281,27 +329,41 @@ def main():
                  for x in arrays]
             return [t[0], t[1], torch.zeros_like(t[1]), t[2]]
 
-        impact = on_card(chip_smoke.random_states14(
-            np.random.default_rng(5), chip_smoke.N_ENVS))
+        cases = [("K1", 4096, "fast", s01, (None, env01.params)),
+                 ("K1", 256, "fast", s01, (None, env01.params))]
+        q, v, u = chip_smoke.random_states14(np.random.default_rng(5),
+                                             chip_smoke.N_ENVS)
+        impact = on_card((q, v, u))
+        # the MPC expert's plan rollouts: 14 states of the block against the
+        # robot (random_states14's kinds 4 and 5), 64 candidates each
+        rows = np.repeat(np.nonzero(np.arange(len(q)) % 6 >= 4)[0][:14], 64)
+        lockstep = on_card((q[rows], v[rows], u[rows] + 0.5 * np.random.
+                            default_rng(8).normal(size=(len(rows), 2))))
+        grades = {"fast": (env03.params,), "exact": (bs.ENV03_PARAMS,)}
+        cases += [("K2", B, grade, s03, grades[grade])
+                  for grade in grades
+                  for B in (1, 512, 1024, 2048, 4096)]
+        cases += [("K2", 896, grade + " lockstep", lockstep, grades[grade])
+                  for grade in grades]
+        cases += [("K2", 1792, "fast", s03, (env03.params,)),
+                  ("K2", 4096, "fast impact", impact, (env03.params,)),
+                  ("K2", 512, "fast impact", impact, (env03.params,)),
+                  ("K2", 4096, "fast first-step", s03_first,
+                   (env03.params,))]
         at_wall = on_card(chip_smoke.random_states_walls(
             np.random.default_rng(5), chip_smoke.N_ENVS))
         fast = (env_move.params,)
-        cases = [("K1", 4096, "fast", s01, (None, env01.params)),
-                 ("K1", 256, "fast", s01, (None, env01.params)),
-                 ("K2", 4096, "fast", s03, (env03.params,)),
-                 ("K2", 1024, "exact", s03, (bs.ENV03_PARAMS,)),
-                 ("K2", 4096, "fast impact", impact, (env03.params,)),
-                 ("K2", 4096, "fast first-step", s03_first, (env03.params,)),
-                 ("K3", 4096, "fast", smove, fast),
-                 ("K3", 2048, "fast", smove, fast),
-                 ("K3", 1088, "fast", smove, fast),
-                 ("K3", 1056, "fast", smove, fast),
-                 ("K3", 1024, "fast", smove, fast),
-                 ("K3", 512, "fast", smove, fast),
-                 ("K3", 512, "exact", smove, (MOVE05_PARAMS,)),
-                 ("K3", 4096, "fast at-wall", at_wall, fast),
-                 ("K3", 512, "fast at-wall", at_wall, fast)]
-        # phase 3c's float32 K3 checks, held per kind to both plain versions
+        cases += [("K3", 4096, "fast", smove, fast),
+                  ("K3", 2048, "fast", smove, fast),
+                  ("K3", 1088, "fast", smove, fast),
+                  ("K3", 1056, "fast", smove, fast),
+                  ("K3", 1024, "fast", smove, fast),
+                  ("K3", 512, "fast", smove, fast),
+                  ("K3", 512, "exact", smove, (MOVE05_PARAMS,)),
+                  ("K3", 4096, "fast at-wall", at_wall, fast),
+                  ("K3", 512, "fast at-wall", at_wall, fast)]
+        # phase 3c's float32 K3 checks, held per kind to both plain
+        # versions
         check3 = chip_smoke.check_states(cuda_move.crossover())["K3"]
         cases += [("K3", B, "fast phase-3c", on_card(draws[2]), fast)
                   for B, draws in check3.items()]
@@ -372,7 +434,7 @@ def main():
                       + " ".join(f"{x:.0f}"
                                  for x in np.median(steps[b], axis=0)))
         names = [b for b in ("default", "old") if ("K3", b) in libs]
-        for grade in ("fast", "exact"):
+        for grade in ("fast", "exact") if names else ():
             res = {b: [] for b in names}
             for b in names + names[::-1]:
                 res[b].append(with_lib(cuda_move, libs["K3", b],
