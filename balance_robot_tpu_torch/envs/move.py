@@ -12,6 +12,10 @@ which is the chassis frame at height 0.110, cast against the floor plane
 and the walls, with the reference's pitch correction and range rules. The
 outer obs keeps the reference's as-built zeroed lidar slots, while the
 reward uses the real ray distances.
+
+Per-step spans (`utils/profiling.span`, recorded only under a profiler):
+`move.step` around `EnvMove05.step`, with `move.lidar` (the ray casts and
+the reward) and `move.inner` (quantize, int8 forward, dequantize) inside.
 """
 
 import pathlib
@@ -25,6 +29,7 @@ from ..physics import robot_core as rc
 from ..physics.cuda_step import control_step
 from ..physics.slin import qmat
 from ..physics.step import PhysState
+from ..utils.profiling import span
 from . import base
 from .base import (EnvState, WHEEL_SPEED_DELTA_MAX, TERMINATE_PITCH,
                    pitch_of, scipy_euler_to_mj_quat_scrambled)
@@ -164,17 +169,19 @@ class EnvMove05(Env01V1):
 
         action (B, 2) in [-1, 1] = (target speed / 20, target yaw / 45).
         Returns (state, obs float32, reward, terminated, truncated)."""
-        # 1) reward from the pre-step state
-        reward = self._reward(state)
-        # 2) the inner int8 balance policy sets the wheel servos
-        state, ctrl = self.wheel_ctrl(state, action)
-        phys = PhysState(*control_step(
-            state.phys.qpos, state.phys.qvel, state.phys.warmstart, ctrl,
-            None, self.params))
-        state = state._replace(phys=phys, t=state.t + 1)
-        terminated = pitch_of(phys.qpos).abs() > TERMINATE_PITCH
-        truncated = state.t >= self.max_episode_steps
-        return state, self._obs(state), reward, terminated, truncated
+        with span("move.step"):
+            # 1) reward from the pre-step state
+            with span("move.lidar"):
+                reward = self._reward(state)
+            # 2) the inner int8 balance policy sets the wheel servos
+            state, ctrl = self.wheel_ctrl(state, action)
+            phys = PhysState(*control_step(
+                state.phys.qpos, state.phys.qvel, state.phys.warmstart, ctrl,
+                None, self.params))
+            state = state._replace(phys=phys, t=state.t + 1)
+            terminated = pitch_of(phys.qpos).abs() > TERMINATE_PITCH
+            truncated = state.t >= self.max_episode_steps
+            return state, self._obs(state), reward, terminated, truncated
 
     def wheel_ctrl(self, state, action):
         """(state, ctrl (B, 2)): the servo targets `step` hands the physics
@@ -205,7 +212,8 @@ class EnvMove05(Env01V1):
             / base.WHEEL_SPEED_MAX * 4.0,
             (target_yaw - base.wheel_yaw(qvel)) / base.YAW_MAX * 3.0,
         ], -1).to(torch.float32)
-        inner_action = self._inner_fn(inner_obs)
+        with span("move.inner"):
+            inner_action = self._inner_fn(inner_obs)
         ctrl = qvel[:, 6:8] + inner_action.to(self.dtype) \
             * WHEEL_SPEED_DELTA_MAX
         return state, ctrl

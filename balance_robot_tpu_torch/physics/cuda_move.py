@@ -36,8 +36,10 @@ from ..utils import profiling
 LABEL, SOURCE = "k3", "control_step_walls.cu"   # library label, file in csrc/
 MAX_WALLS = 4                                   # the kernel's ParamsWalls
 
-# kernel launches since import (or since a caller reset it to 0)
+# kernel launches since import (or since a caller reset it to 0), in all and
+# by the team of lanes per env that `launch_config` chose
 launches = 0
+launches_by_team = {}
 # filled by build(): seconds, whether the library was reused, ptxas report
 build_info = {}
 _lib = None
@@ -178,6 +180,7 @@ def control_step_walls_cuda(qpos, qvel, ws, ctrl, params, frame_skip=250):
     if err != 0:
         raise RuntimeError(f"K3 launch failed: CUDA error {err}")
     launches += 1
+    launches_by_team[team] = launches_by_team.get(team, 0) + 1
     return qp, qv, w
 
 

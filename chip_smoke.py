@@ -868,7 +868,7 @@ def build_kernels():
 def zero_counts(modules):
     for m in modules.values():
         m.launches = 0
-        if hasattr(m, "launches_by_team"):   # K2
+        if hasattr(m, "launches_by_team"):   # K2, K3
             m.launches_by_team.clear()
 
 
@@ -907,7 +907,7 @@ def run_main_path(vec, policy, gen, modules, kernel, after_step=None):
     check(obs.shape == (N_ENVS, vec.env.obs_dim),
           f"obs shape {tuple(obs.shape)}")
     by_team = ""
-    if hasattr(modules[kernel], "launches_by_team"):   # K2
+    if hasattr(modules[kernel], "launches_by_team"):   # K2, K3
         teams = dict(modules[kernel].launches_by_team)
         team = modules[kernel].launch_config(torch.float32, N_ENVS)[0]
         check(teams == {team: N_STEPS}, f"{vec.env.id} main path: "

@@ -168,7 +168,8 @@ def test_k3_wrapper_launches_the_instantiation_the_header_names(
         host_libs, monkeypatch):
     """The K3 wrapper hands the launch the team that the library's
     k3_launch_config gives for the batch: the `.cu` header's small-batch
-    team below its crossover, one lane per env from the crossover on."""
+    team below its crossover, one lane per env from the crossover on;
+    `launches_by_team` counts each launch under its team."""
     lib = host_libs["k3"]
     header = (kernel_build.CSRC / cuda_move.SOURCE).read_text()
     team = int(re.search(r"#define BRT_K3_TEAM (\d+)", header).group(1))
@@ -188,6 +189,7 @@ def test_k3_wrapper_launches_the_instantiation_the_header_names(
 
     monkeypatch.setattr(cuda_move, "_lib", Lib())
     monkeypatch.setattr(cuda_move, "launches", 0)
+    monkeypatch.setattr(cuda_move, "launches_by_team", {})
     monkeypatch.setattr(cuda_step, "check_kernel_args", lambda *a: None)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
@@ -199,6 +201,7 @@ def test_k3_wrapper_launches_the_instantiation_the_header_names(
     assert launched == [cuda_move.launch_config(torch.float32, B, lib)[0]
                         for B in batches] == [team, team, 1, 1]
     assert cuda_move.launches == len(batches)
+    assert cuda_move.launches_by_team == {team: 2, 1: 2}
     # the team keeps the env's 272 rows (13 columns of 273, 44 Hessian and
     # gradient entries) in shared memory; one lane keeps them in its own
     # local array
