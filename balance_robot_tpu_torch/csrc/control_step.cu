@@ -15,55 +15,88 @@
 // forces -> implicitfast velocity update on M - h*D -> quaternion
 // integration.
 //
-// Design: a team of TEAM lanes of one warp per env, as K2 (team_solve in
-// robot_common.cuh), one warp per block (THREADS / TEAM envs), all
-// substeps in one launch. Only qpos, qvel, warm start, ctrl and friction
-// cross device memory, once each. Trip counts are fixed, the ragged batch
-// edge is masked per team (no padding), and the scene parameters and
-// iteration counts are runtime arguments, so a change of solver grade
-// rebuilds nothing.
+// Design: the team solver of K2 and K3 (team_solve in robot_common.cuh),
+// one warp per block, all substeps in one launch. Only qpos, qvel, warm
+// start, ctrl and friction cross device memory, once each. Trip counts are
+// fixed, the ragged batch edge is masked per team (no padding), and the
+// scene parameters and iteration counts are runtime arguments, so a change
+// of solver grade rebuilds nothing.
 // - Included rows only. The TPU kernel (and this one up to its first
 //   redesign) builds all 64 rows and masks the ones that are out; a masked
 //   row adds exact zeros to the cost, the gradient, the Hessian and the
 //   forces, so leaving it out changes no result. A robot standing on its
 //   wheels has 2-8 contacts, 8-32 rows.
-// - Rows in shared memory: J (8 columns), aref, D, J a - aref, J step and
-//   the active weight, column-major with a stride of 65, plus the 36
-//   Hessian and 8 gradient entries: 3,556 bytes per env in float, 7,112 in
-//   double, for the worst case of 64 rows.
 // - Every lane computes the fk/CRB/RNE, the 16 candidates and the 8x8
-//   factorizations; candidate c is emitted by lane c mod TEAM at the slot
-//   its included predecessors leave; the row loops run over the lanes with
-//   shuffle sums, and the lanes own the Hessian's 36 lower-triangle and the
-//   gradient's 8 entries.
+//   factorizations; candidate c is emitted by lane c mod G at the slot its
+//   included predecessors leave.
 //
-// What bounds it on an H100: the latency of each team's serial chain (the
+// Two instantiations of the one source, chosen by batch size in the
+// wrapper (cuda_step.py), which reads the choice from k1_launch_config:
+// - below CROSSOVER envs (serving at 256, PPO at the CLI's 1,024, the
+//   sharded and off-policy runs), a team of TEAM = 32 lanes per env, one
+//   env per one-warp block, its rows in dynamic shared memory (TeamRows: J
+//   (8 columns), aref, D, J a - aref, J step and the active weight,
+//   column-major with a stride of 65, plus the 36 Hessian and 8 gradient
+//   entries; 3,556 bytes per env in float, 7,112 in double, for the worst
+//   case of 64 rows); the row loops run over the lanes with shuffle sums,
+//   and the lanes own the Hessian's and the gradient's 44 entries.
+//   Registers are capped at 128 (16 one-warp blocks per SM, with spills):
+//   one wave holds 16 x 132 = 2,112 envs;
+// - from CROSSOVER envs on (the 4096-env collections), one lane per env,
+//   its rows in the thread's own local array (LaneRows: J row-major,
+//   3,072 bytes in float), as K3's one-lane instantiation; every shuffle
+//   and warp sync compiles out, and team_solve takes each row's Hessian,
+//   gradient and force in one pass from J in registers. A team there runs
+//   the serial chain once per lane, and its second wave doubles its time.
+// An env's float32 bits depend on the side of the crossover its batch
+// falls on (the two instantiations sum the rows in another order).
+//
+// The crossover is the first batch past one wave of the 32-lane team
+// (2,112 envs), where one lane wins at both solver grades. Timed in turns
+// on an H100 80GB HBM3 at 700 W (tools/time_kernels.py; PERF.md), ms at
+// B = 256 / 512 / 1024 / 1536 / 2048 / 2112 / 2176 / 3072 / 4096 on the
+// Env01-v2 main path's states, float32:
+//   fast grade:  32 lanes 9.20 / 9.78 / 12.14 / 14.13 / 16.49 / 16.60 /
+//                24.59 / 29.60 / 32.16; one lane 14.17 / 14.21 / 14.30 /
+//                14.28 / 14.36 / 14.36 / 14.30 / 14.32 / 14.24;
+//   exact grade: 32 lanes 18.71 / 18.88 / 22.22 / 25.21 / 28.21 / 28.36 /
+//                44.57 / 52.06 / 55.16; one lane 31.24 / 31.44 / 31.51 /
+//                31.53 / 31.56 / 31.58 / 31.51 / 31.48 / 31.62.
+// One lane takes about the same time at any batch up to one warp per SM
+// (4,224 envs), the team one more wave from 2,113 envs on. At the fast
+// grade one lane already wins at 2,048 (14.36 against 16.49; at 1,536 the
+// team's 14.13 against 14.28), at the exact grade only from 2,176 (at
+// 2,112 31.58 against 28.36). Teams of 4 and 2 lanes on TeamRows (still
+// capped for 16 blocks per SM, which their shared rows cannot fill) took
+// 84.7 and 207.7 ms at 4096, fast.
+//
+// What bounds it on an H100: the latency of each env's serial chain (the
 // robot dynamics and the small factorizations stay serial on every lane);
-// the operations are about 1% of the card's fp32 peak in that time and the
-// bytes moved ~100 per env per control step. So the launch shape trades
-// the chain's length against the warps in flight: a team of 32 lanes
-// shortens the row loops most, and capping registers at 128 (16 blocks of
-// one warp per SM) lets 16 envs share an SM at the price of some spills.
-// Of the shapes timed together (PERF.md), 8 lanes won at 4096 envs
-// and lost at 256; 32 lanes with the cap were within ~15% of the best at
-// both.
+// the operations are 1-2.5% of the card's fp32 peak in that time and the
+// bytes moved ~100 per env per control step.
 //
-// ptxas (-Xptxas -v, nvcc 12.8, sm_90a): float kernel 128 registers, 640
-// bytes stack frame, 448 bytes spill stores, 1,576 bytes spill loads;
-// double kernel 128 registers, 2,000 bytes stack frame, 2,304 / 6,556
-// bytes spilled. The row arrays are in shared memory, no longer in the
-// stack frame (the one-thread-per-env design before: float 224
-// registers, 3,632 bytes stack).
+// ptxas (-Xptxas -v, nvcc 12.8, sm_90a): team of 32, float: 128
+// registers, 640 bytes stack frame, 448 bytes spill stores, 1,576 bytes
+// spill loads; double: 128 registers, 2,000 bytes stack frame, 2,304 /
+// 6,556 bytes spilled. One lane, float: 211 registers, 3,360 bytes stack
+// frame (3,072 of it the rows), no spills; double: 255 registers, 7,184
+// bytes stack frame, 856 / 3,232 bytes spilled.
 //
 // The same templated code also runs on the host with `Counted`, a double
 // that counts every arithmetic operation, and a team of one lane:
-// k1_count_ops gives the operation count from which chip_smoke.py computes
-// the kernel's bound. chip_smoke.py prints ptxas's registers, stack and
-// spills of each build and the launch shape.
+// k1_count_ops (on LaneRows, the one-pass solver) gives the operation
+// count from which chip_smoke.py computes the kernel's bound, and with
+// k1_count_ops_team_rows (on TeamRows, the by-entry solver that the team's
+// lanes run; the same bits and count) lets both instantiations' arithmetic
+// be compared with the plain version without a GPU. chip_smoke.py prints
+// ptxas's registers, stack and spills of each build and each
+// instantiation's launch shape.
 //
 // The device code K1 shares with K2 (control_step14.cu) and K3
 // (control_step_walls.cu) is in robot_common.cuh: the algebra, the robot's
 // smooth dynamics, the floor colliders, the row emitter and both solvers.
+
+#include <type_traits>
 
 #include "robot_common.cuh"
 
@@ -74,26 +107,35 @@ using namespace brt;
 constexpr int NV = NV_ROBOT;
 constexpr int NCON = 16;
 constexpr int MAXROW = 4 * NCON;
-// The team size and the blocks per SM that registers are capped for
-// (__launch_bounds__): 32 lanes and 16 blocks (128 registers a thread, with
-// spills) are the best of the variants timed together over the main
-// path's 4096 envs and Env01 serving's 256 (PERF.md).
+// The small-batch team, the blocks per SM that its registers are capped
+// for (__launch_bounds__) and the batch from which one lane per env runs
+// instead (see above); only tools/time_kernels.py overrides them (a
+// crossover of 0 for always one lane, a large one for never).
 #ifndef BRT_K1_TEAM
 #define BRT_K1_TEAM 32
 #endif
 #ifndef BRT_K1_MINB
 #define BRT_K1_MINB 16
 #endif
-constexpr int TEAM = BRT_K1_TEAM;     // lanes per env
-constexpr int ENVS = THREADS / TEAM;   // envs per block of one warp
+#ifndef BRT_K1_CROSSOVER
+#define BRT_K1_CROSSOVER 2113
+#endif
+constexpr int TEAM = BRT_K1_TEAM;
+constexpr int CROSSOVER = BRT_K1_CROSSOVER;
 static_assert(TEAM >= 1 && TEAM <= 32 && (TEAM & (TEAM - 1)) == 0,
               "the team is a power of two inside one warp");
-template <typename T>
-using Rows = TeamRows<T, NV, MAXROW>;
+// The row store of a team of G lanes: TeamRows for several lanes (shared
+// memory), LaneRows for one (its own array, J row-major).
+template <typename T, int G>
+using Rows = std::conditional_t<G == 1, LaneRows<T, NV, MAXROW>,
+                                TeamRows<T, NV, MAXROW>>;
+
+// The lanes per env of a launch of B envs.
+inline int team_for(int B) { return B < CROSSOVER ? TEAM : 1; }
 
 // ------------------------------------------------------- one substep
-template <typename T, class Tm>
-BRT_HD void substep(const Tm& tm, const Rows<T>& rw, T qpos[9], T qvel[8],
+template <typename T, class Tm, class R>
+BRT_HD void substep(const Tm& tm, const R& rw, T qpos[9], T qvel[8],
                     T ws[8], const T ctrl[2], T fric, bool use_fric,
                     const Params& p, int newton_iters, int ls_iters) {
   RobotKin<T> k;
@@ -146,8 +188,8 @@ BRT_HD void substep(const Tm& tm, const Rows<T>& rw, T qpos[9], T qvel[8],
   integrate_robot(qpos, qvel, T(p.timestep));
 }
 
-template <typename T, class Tm>
-BRT_HD void control_step_one(const Tm& tm, const Rows<T>& rw, T q[9],
+template <typename T, class Tm, class R>
+BRT_HD void control_step_one(const Tm& tm, const R& rw, T q[9],
                              T v[8], T w[8], const T c[2], T fric,
                              bool use_fric, const Params& p, int newton_iters,
                              int ls_iters, int frame_skip) {
@@ -155,28 +197,66 @@ BRT_HD void control_step_one(const Tm& tm, const Rows<T>& rw, T q[9],
     substep(tm, rw, q, v, w, c, fric, use_fric, p, newton_iters, ls_iters);
 }
 
+// Dynamic shared memory per block of the instantiation with G lanes per
+// env: none for one lane, whose rows are in its own local array.
 template <typename T>
-constexpr int smem_bytes() {
-  return ENVS * Rows<T>::SIZE * (int)sizeof(T);
+constexpr int smem_bytes(int G) {
+  return G == 1 ? 0
+                : THREADS / G * TeamRows<T, NV, MAXROW>::SIZE * (int)sizeof(T);
+}
+
+// One env's control step on the host, in double with every operation
+// counted, as a team of one lane on the row store Rw.
+template <class Rw>
+long long count_ops(const double* qpos, const double* qvel, const double* ws,
+                    const double* ctrl, double fric, double* qpos_out,
+                    double* qvel_out, double* ws_out, const Params* p,
+                    int newton_iters, int ls_iters, int frame_skip,
+                    int use_fric) {
+  using T = Counted;
+  static T buf[Rw::SIZE];
+  const Team<1> tm{0, 1u};
+  const Rw rw{buf};
+  T q[9], v[8], w[8], c[2];
+  for (int k = 0; k < 9; ++k) q[k] = T(qpos[k]);
+  for (int k = 0; k < 8; ++k) {
+    v[k] = T(qvel[k]);
+    w[k] = T(ws[k]);
+  }
+  c[0] = T(ctrl[0]);
+  c[1] = T(ctrl[1]);
+  g_ops = 0;
+  control_step_one(tm, rw, q, v, w, c, T(fric), use_fric != 0, *p,
+                   newton_iters, ls_iters, frame_skip);
+  for (int k = 0; k < 9; ++k) qpos_out[k] = q[k].v;
+  for (int k = 0; k < 8; ++k) {
+    qvel_out[k] = v[k].v;
+    ws_out[k] = w[k].v;
+  }
+  return g_ops;
 }
 
 #ifdef __CUDACC__
-// One warp per block, ENVS teams of TEAM lanes, one env per team; each
-// team's rows in its slice of the block's dynamic shared memory.
-template <typename T>
-__global__ void __launch_bounds__(THREADS, BRT_K1_MINB) control_step_kernel(
-    const T* __restrict__ qpos, const T* __restrict__ qvel,
-    const T* __restrict__ ws, const T* __restrict__ ctrl,
-    const T* __restrict__ fric, T* __restrict__ qpos_out,
-    T* __restrict__ qvel_out, T* __restrict__ ws_out, int B, Params p,
-    int newton_iters, int ls_iters, int frame_skip, int use_fric) {
+// One warp per block, THREADS / G teams of G lanes, one env per team; a
+// team of several lanes keeps its rows in its slice of the block's dynamic
+// shared memory and has its registers capped for BRT_K1_MINB blocks per
+// SM, a team of one keeps them in its own local array.
+template <typename T, int G>
+__global__ void __launch_bounds__(THREADS, G == 1 ? 1 : BRT_K1_MINB)
+    control_step_kernel(
+        const T* __restrict__ qpos, const T* __restrict__ qvel,
+        const T* __restrict__ ws, const T* __restrict__ ctrl,
+        const T* __restrict__ fric, T* __restrict__ qpos_out,
+        T* __restrict__ qvel_out, T* __restrict__ ws_out, int B, Params p,
+        int newton_iters, int ls_iters, int frame_skip, int use_fric) {
+  using Rw = Rows<T, G>;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int team = threadIdx.x / TEAM;
-  const int i = blockIdx.x * ENVS + team;
+  alignas(16) T own[G == 1 ? Rw::SIZE : 1];
+  const int team = threadIdx.x / G;
+  const int i = blockIdx.x * (THREADS / G) + team;
   if (i >= B) return;
-  const Team<TEAM> tm{(int)threadIdx.x % TEAM,
-                      team_mask(TEAM, threadIdx.x % 32)};
-  const Rows<T> rw{reinterpret_cast<T*>(smem) + team * Rows<T>::SIZE};
+  const Team<G> tm{(int)threadIdx.x % G, team_mask(G, threadIdx.x % 32)};
+  const Rw rw{G == 1 ? own : reinterpret_cast<T*>(smem) + team * Rw::SIZE};
   T q[9], v[8], w[8], c[2];
   for (int k = 0; k < 9; ++k) q[k] = qpos[9 * i + k];
   for (int k = 0; k < 8; ++k) {
@@ -196,19 +276,37 @@ __global__ void __launch_bounds__(THREADS, BRT_K1_MINB) control_step_kernel(
   }
 }
 
+template <typename T, int G>
+int launch_team(const T* qpos, const T* qvel, const T* ws, const T* ctrl,
+                const T* fric, T* qpos_out, T* qvel_out, T* ws_out, int B,
+                const Params* p, int newton_iters, int ls_iters,
+                int frame_skip, int use_fric, void* stream) {
+  const int smem = smem_bytes<T>(G);
+  int err = allow_smem(control_step_kernel<T, G>, smem);
+  if (err) return err;
+  const int envs = THREADS / G;
+  const int blocks = (B + envs - 1) / envs;
+  control_step_kernel<T, G><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      qpos, qvel, ws, ctrl, fric, qpos_out, qvel_out, ws_out, B, *p,
+      newton_iters, ls_iters, frame_skip, use_fric);
+  return (int)cudaGetLastError();
+}
+
+// `team` picks the instantiation: TEAM or 1 lane per env.
 template <typename T>
 int launch(const T* qpos, const T* qvel, const T* ws, const T* ctrl,
            const T* fric, T* qpos_out, T* qvel_out, T* ws_out, int B,
            const Params* p, int newton_iters, int ls_iters, int frame_skip,
-           int use_fric, void* stream) {
-  const int smem = smem_bytes<T>();
-  int err = allow_smem(control_step_kernel<T>, smem);
-  if (err) return err;
-  const int blocks = (B + ENVS - 1) / ENVS;
-  control_step_kernel<T><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      qpos, qvel, ws, ctrl, fric, qpos_out, qvel_out, ws_out, B, *p,
-      newton_iters, ls_iters, frame_skip, use_fric);
-  return (int)cudaGetLastError();
+           int use_fric, int team, void* stream) {
+  if (team == TEAM)
+    return launch_team<T, TEAM>(qpos, qvel, ws, ctrl, fric, qpos_out,
+                                qvel_out, ws_out, B, p, newton_iters,
+                                ls_iters, frame_skip, use_fric, stream);
+  if (team == 1)
+    return launch_team<T, 1>(qpos, qvel, ws, ctrl, fric, qpos_out, qvel_out,
+                             ws_out, B, p, newton_iters, ls_iters,
+                             frame_skip, use_fric, stream);
+  return (int)cudaErrorInvalidValue;
 }
 #endif
 
@@ -218,15 +316,18 @@ extern "C" {
 
 #ifdef __CUDACC__
 // Launch K1 on `stream` for B envs (row-major (B,9)/(B,8)/(B,8)/(B,2)
-// inputs, fric (B,) or null). Returns the CUDA error of the launch, 0 if
-// none.
+// inputs, fric (B,) or null) with `team` lanes per env, as
+// k1_launch_config gives it for B. Returns the CUDA error of the launch, 0
+// if none.
 int k1_control_step_f32(const float* qpos, const float* qvel, const float* ws,
                         const float* ctrl, const float* fric, float* qpos_out,
                         float* qvel_out, float* ws_out, int B,
                         const k1::Params* p, int newton_iters, int ls_iters,
-                        int frame_skip, int use_fric, void* stream) {
+                        int frame_skip, int use_fric, int team,
+                        void* stream) {
   return k1::launch(qpos, qvel, ws, ctrl, fric, qpos_out, qvel_out, ws_out, B,
-                    p, newton_iters, ls_iters, frame_skip, use_fric, stream);
+                    p, newton_iters, ls_iters, frame_skip, use_fric, team,
+                    stream);
 }
 
 int k1_control_step_f64(const double* qpos, const double* qvel,
@@ -234,49 +335,50 @@ int k1_control_step_f64(const double* qpos, const double* qvel,
                         const double* fric, double* qpos_out,
                         double* qvel_out, double* ws_out, int B,
                         const k1::Params* p, int newton_iters, int ls_iters,
-                        int frame_skip, int use_fric, void* stream) {
+                        int frame_skip, int use_fric, int team,
+                        void* stream) {
   return k1::launch(qpos, qvel, ws, ctrl, fric, qpos_out, qvel_out, ws_out, B,
-                    p, newton_iters, ls_iters, frame_skip, use_fric, stream);
+                    p, newton_iters, ls_iters, frame_skip, use_fric, team,
+                    stream);
 }
 #endif
 
-// The card's launch shape: lanes per env, envs per block and dynamic
+// The batch from which a launch takes one lane per env.
+int k1_crossover() { return k1::CROSSOVER; }
+
+// The launch shape for B envs: lanes per env, envs per block and dynamic
 // shared memory per block for float (f64 = 0) or double (f64 = 1).
-void k1_launch_config(int f64, int* team, int* envs, int* smem) {
-  *team = k1::TEAM;
-  *envs = k1::ENVS;
-  *smem = f64 ? k1::smem_bytes<double>() : k1::smem_bytes<float>();
+void k1_launch_config(int f64, int B, int* team, int* envs, int* smem) {
+  *team = k1::team_for(B);
+  *envs = brt::THREADS / *team;
+  *smem = f64 ? k1::smem_bytes<double>(*team) : k1::smem_bytes<float>(*team);
 }
 
 // One env's control step on the host in double precision, as a team of one
-// lane, with every arithmetic operation counted. Writes the new state and
-// returns the count.
+// lane on the row store of the one-lane instantiation (LaneRows, the
+// one-pass solver), with every arithmetic operation counted. Writes the new
+// state and returns the count.
 long long k1_count_ops(const double* qpos, const double* qvel,
                        const double* ws, const double* ctrl, double fric,
                        double* qpos_out, double* qvel_out, double* ws_out,
                        const k1::Params* p, int newton_iters, int ls_iters,
                        int frame_skip, int use_fric) {
-  using T = brt::Counted;
-  static T buf[k1::Rows<T>::SIZE];
-  const brt::Team<1> tm{0, 1u};
-  const k1::Rows<T> rw{buf};
-  T q[9], v[8], w[8], c[2];
-  for (int k = 0; k < 9; ++k) q[k] = T(qpos[k]);
-  for (int k = 0; k < 8; ++k) {
-    v[k] = T(qvel[k]);
-    w[k] = T(ws[k]);
-  }
-  c[0] = T(ctrl[0]);
-  c[1] = T(ctrl[1]);
-  brt::g_ops = 0;
-  k1::control_step_one(tm, rw, q, v, w, c, T(fric), use_fric != 0, *p,
-                       newton_iters, ls_iters, frame_skip);
-  for (int k = 0; k < 9; ++k) qpos_out[k] = q[k].v;
-  for (int k = 0; k < 8; ++k) {
-    qvel_out[k] = v[k].v;
-    ws_out[k] = w[k].v;
-  }
-  return brt::g_ops;
+  return k1::count_ops<k1::Rows<brt::Counted, 1>>(
+      qpos, qvel, ws, ctrl, fric, qpos_out, qvel_out, ws_out, p,
+      newton_iters, ls_iters, frame_skip, use_fric);
+}
+
+// The same on the row store of the team instantiation (TeamRows, the
+// by-entry solver that the team's lanes run), as a team of one lane.
+long long k1_count_ops_team_rows(const double* qpos, const double* qvel,
+                                 const double* ws, const double* ctrl,
+                                 double fric, double* qpos_out,
+                                 double* qvel_out, double* ws_out,
+                                 const k1::Params* p, int newton_iters,
+                                 int ls_iters, int frame_skip, int use_fric) {
+  return k1::count_ops<k1::Rows<brt::Counted, k1::TEAM>>(
+      qpos, qvel, ws, ctrl, fric, qpos_out, qvel_out, ws_out, p,
+      newton_iters, ls_iters, frame_skip, use_fric);
 }
 
 }  // extern "C"

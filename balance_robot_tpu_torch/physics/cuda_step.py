@@ -10,6 +10,15 @@ for CUDA tensors and runs the plain version for CPU tensors: the device of
 the state decides, and a CUDA call that cannot build or launch raises. A
 scene with walls goes to K3 (`cuda_move.py`) instead of K1.
 
+The one source holds two instantiations of the kernel on the team solver,
+and the batch size picks one, as for K3: below the crossover that the
+`.cu` header names (serving, training at the CLI's 1,024 envs), a team of
+32 lanes per env with its rows in shared memory; from it on (the 4096-env
+collections), one thread per env with its rows in its own local array.
+`launch_config(dtype, B)` reads the choice from the library
+(`k1_launch_config`), and the launch passes it on; there is no other way
+in.
+
 The kernel is built at first use with `nvcc` into `build/torch_kernels/`
 at the repository root, as a shared library with a plain C interface
 loaded through `ctypes` (`kernel_build.py`); a content hash of the source
@@ -27,8 +36,10 @@ from ..utils import profiling
 
 LABEL, SOURCE = "k1", "control_step.cu"      # library label, file in csrc/
 
-# kernel launches since import (or since a caller reset it to 0)
+# kernel launches since import (or since a caller reset it to 0), in all and
+# by the team of lanes per env that `launch_config` chose
 launches = 0
+launches_by_team = {}
 # filled by build(): seconds, whether the library was reused, ptxas report
 build_info = {}
 _lib = None
@@ -128,16 +139,18 @@ def _bind(path):
         fn = getattr(lib, name, None)
         if fn is not None:
             fn.argtypes = [ptr] * 8 + [i32, ctypes.POINTER(Params)] \
-                + [i32] * 4 + [ptr]
+                + [i32] * 5 + [ptr]
             fn.restype = i32
+    lib.k1_crossover.argtypes = []
+    lib.k1_crossover.restype = i32
+    lib.k1_launch_config.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 3
+    lib.k1_launch_config.restype = None
     dptr = ctypes.POINTER(ctypes.c_double)
-    lib.k1_count_ops.argtypes = [dptr] * 4 + [ctypes.c_double] + [dptr] * 3 \
-        + [ctypes.POINTER(Params)] + [i32] * 4
-    lib.k1_count_ops.restype = ctypes.c_longlong
-    fn = getattr(lib, "k1_launch_config", None)
-    if fn is not None:   # absent from a build of an earlier csrc/
-        fn.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
-        fn.restype = None
+    for name in ("k1_count_ops", "k1_count_ops_team_rows"):
+        fn = getattr(lib, name)
+        fn.argtypes = [dptr] * 4 + [ctypes.c_double] + [dptr] * 3 \
+            + [ctypes.POINTER(Params)] + [i32] * 4
+        fn.restype = ctypes.c_longlong
     return lib
 
 
@@ -163,10 +176,17 @@ def read_launch_config(fn, dtype, *extra):
     return tuple(v.value for v in vals)
 
 
-def launch_config(dtype):
-    """(lanes per env, envs per block, shared bytes per block) of K1's
-    launch for `dtype` (torch.float32 or torch.float64)."""
-    return read_launch_config(build().k1_launch_config, dtype)
+def crossover(lib=None):
+    """The batch from which K1 runs one lane per env (the `.cu` header's
+    BRT_K1_CROSSOVER)."""
+    return (lib or build()).k1_crossover()
+
+
+def launch_config(dtype, B, lib=None):
+    """(lanes per env, envs per block, shared bytes per block) of the
+    instantiation that a launch of B envs of `dtype` (torch.float32 or
+    torch.float64) takes. `lib`: as for `count_ops`."""
+    return read_launch_config((lib or build()).k1_launch_config, dtype, B)
 
 
 # ------------------------------------------------------------ launch
@@ -191,7 +211,8 @@ def check_kernel_args(kernel, ref, args):
 
 
 def control_step_cuda(qpos, qvel, ws, ctrl, friction, params, frame_skip=250):
-    """Launch K1 on the current stream; CUDA tensors only."""
+    """Launch K1 on the current stream, with the instantiation that
+    `launch_config` names for the batch; CUDA tensors only."""
     global launches
     if params.walls:
         raise ValueError("K1 has no wall contacts: a scene with walls runs "
@@ -209,20 +230,22 @@ def control_step_cuda(qpos, qvel, ws, ctrl, friction, params, frame_skip=250):
     lib = build()
     fn = (lib.k1_control_step_f32 if qpos.dtype == torch.float32
           else lib.k1_control_step_f64)
+    team = launch_config(qpos.dtype, B, lib)[0]
     import ctypes
     fric_ptr = friction.data_ptr() if use_friction else None
     with torch.cuda.device(qpos.device):
         stream = torch.cuda.current_stream().cuda_stream
-        with kernel_build.first_launch(fn.__name__):
+        with kernel_build.first_launch(f"{fn.__name__}/{team}"):
             err = fn(qpos.data_ptr(), qvel.data_ptr(), ws.data_ptr(),
                      ctrl.data_ptr(), fric_ptr,
                      qp.data_ptr(), qv.data_ptr(), w.data_ptr(), B,
                      ctypes.byref(kernel_params(params)),
                      params.newton_iters, params.ls_iters, frame_skip,
-                     int(use_friction), stream)
+                     int(use_friction), team, stream)
     if err != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {err}")
     launches += 1
+    launches_by_team[team] = launches_by_team.get(team, 0) + 1
     return qp, qv, w
 
 

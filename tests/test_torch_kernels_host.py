@@ -19,6 +19,7 @@ import re
 import shutil
 import subprocess
 import types
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -65,6 +66,20 @@ def assert_state_close(host, plain):
                                atol=TOL, err_msg="warm start")
 
 
+class TeamRowsLib:
+    """A host library whose k*_count_ops (`label`: k1 or k3) runs on the
+    row store of the team instantiation (TeamRows, the by-entry solver)
+    instead of the one-lane one (LaneRows, the one-pass solver)."""
+
+    def __init__(self, lib, label):
+        self.lib = lib
+        setattr(self, f"{label}_count_ops",
+                getattr(lib, f"{label}_count_ops_team_rows"))
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+
 @pytest.mark.parametrize("scene,fast", [("Env01", False), ("Env02", True)])
 def test_k1_host_build_matches_plain(host_libs, scene, fast):
     params = rc.ENV01_PARAMS if scene == "Env01" else rc.ENV02_PARAMS
@@ -74,18 +89,90 @@ def test_k1_host_build_matches_plain(host_libs, scene, fast):
     qpos, qvel, ws, ctrl, fric = (
         torch.tensor(x) for x in chip_smoke.random_states_np(rng, B))
     fr = fric if params.dynamic_friction else None
-    counts, *host = cuda_step.count_ops(qpos, qvel, ws, ctrl, fr, params,
-                                        frame_skip=FRAME_SKIP,
-                                        lib=host_libs["k1"])
     plain = cuda_step.control_step_plain(qpos, qvel, ws, ctrl, fr, params,
                                          frame_skip=FRAME_SKIP)
-    assert_state_close(host, plain)
-    # every env did FRAME_SKIP substeps. K1 keeps only included contacts'
-    # rows (8-48 of the 64 on these states), so a substep is ~14-31k (fast)
-    # / ~30-72k (exact) ops; with all 64 masked rows kept it was ~60k /
-    # ~125k whatever the contacts
-    per_substep = np.array(counts) / FRAME_SKIP
-    assert (per_substep > 1e4).all() and (per_substep < 8e4).all()
+    # both row stores and their solver code, as a team of one lane: the
+    # one-lane instantiation's (LaneRows, one pass per row: k1_count_ops)
+    # and the team instantiation's (TeamRows, by entry, as the team's lanes
+    # run it: k1_count_ops_team_rows)
+    lib = host_libs["k1"]
+    runs = [cuda_step.count_ops(qpos, qvel, ws, ctrl, fr, params,
+                                frame_skip=FRAME_SKIP, lib=lb)
+            for lb in (lib, TeamRowsLib(lib, "k1"))]
+    for counts, *host in runs:
+        assert_state_close(host, plain)
+        # every env did FRAME_SKIP substeps. K1 keeps only included
+        # contacts' rows (8-48 of the 64 on these states), so a substep is
+        # ~14-31k (fast) / ~30-72k (exact) ops; with all 64 masked rows kept
+        # it was ~60k / ~125k whatever the contacts
+        per_substep = np.array(counts) / FRAME_SKIP
+        assert (per_substep > 1e4).all() and (per_substep < 8e4).all()
+    # the one pass takes the same operations in the same order as the
+    # by-entry code: the same bits and the same count
+    (c_lane, *lane), (c_team, *team) = runs
+    assert c_lane == c_team
+    assert all(torch.equal(a, b) for a, b in zip(lane, team))
+
+
+def test_floor_rows_see_a_candidate_cross_the_floor():
+    """chip_smoke.floor_rows, with which phase 6 finds a floor row that one
+    version's last substep includes and the other's does not: the robot
+    lowered until its lowest candidate lies 1e-9 m above the floor, then
+    1e-9 m below, includes that candidate's 4 rows on one side only."""
+    from balance_robot_tpu_torch.physics import contacts as ct
+    B = 3
+    qpos, qvel, ws, _, _ = (torch.tensor(x) for x in
+                            chip_smoke.random_states_np(
+                                np.random.default_rng(4), B))
+    dist = ct.robot_floor_contacts(rc.fk(qpos)).dist            # (B, 16)
+    low, lowest = dist.min(1)
+
+    def at(height):
+        q = qpos.clone()
+        q[:, 2] += height - low
+        return q
+
+    above, _ = chip_smoke.floor_rows(at(1e-9), qvel, ws, rc.ENV01_PARAMS)
+    below, _ = chip_smoke.floor_rows(at(-1e-9), qvel, ws, rc.ENV01_PARAMS)
+    for i in range(B):
+        flipped = (above[i] != below[i]).nonzero().flatten().tolist()
+        assert flipped == [4 * int(lowest[i]) + r for r in range(4)]
+        assert not above[i].any()
+
+
+@pytest.mark.parametrize("gravity", [1.0, 1.5], ids=["plain", "heavier"])
+def test_k1_warm_start_hold_sets_aside_only_row_flips(gravity):
+    """chip_smoke.hold_k1_warm_start on the host, with a plain version in
+    float64 standing in for the kernel: the plain version itself is held
+    and nothing set aside; one under 1.5 g departs in its warm start on
+    every env and is refused (no row flip explains it, or the plain
+    version in float64 on its own state does not repeat it)."""
+    B, frame_skip = 4, 3
+    params = fast_solver(rc.ENV01_PARAMS)
+    qpos, qvel, ws, ctrl, _ = (torch.tensor(x) for x in
+                               chip_smoke.random_states_np(
+                                   np.random.default_rng(6), B))
+    other = params if gravity == 1.0 else replace(
+        params, gravity=tuple(gravity * g for g in params.gravity))
+
+    def kernel(q, v, w, c, f, p, frame_skip=250):
+        return cuda_step.control_step_plain(q, v, w, c, f, other,
+                                            frame_skip=frame_skip)
+
+    args = (qpos, qvel, ws, ctrl, None, params)
+    k_out = kernel(*args, frame_skip=frame_skip)
+    p_out = cuda_step.control_step_plain(*args, frame_skip=frame_skip)
+    if gravity == 1.0:
+        assert chip_smoke.hold_k1_warm_start(
+            kernel, cuda_step.control_step_plain, args, k_out, p_out,
+            chip_smoke.F32_TOL, frame_skip) == (0.0, [])
+        return
+    assert chip_smoke.drift(k_out, p_out)["ws_rel"] \
+        > chip_smoke.F32_TOL["ws_rel"]
+    with pytest.raises(SystemExit):
+        chip_smoke.hold_k1_warm_start(
+            kernel, cuda_step.control_step_plain, args, k_out, p_out,
+            chip_smoke.F32_TOL, frame_skip)
 
 
 @pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
@@ -114,19 +201,6 @@ def test_k2_host_build_matches_plain(host_libs, fast):
     assert (coupled > 0).any() and (coupled == 0).any(), coupled
 
 
-class TeamRowsLib:
-    """A K3 host library whose k3_count_ops runs on the row store of the
-    team instantiation (TeamRows, the by-entry solver) instead of the
-    one-lane one (LaneRows, the one-pass solver)."""
-
-    def __init__(self, lib):
-        self.lib = lib
-        self.k3_count_ops = lib.k3_count_ops_team_rows
-
-    def __getattr__(self, name):
-        return getattr(self.lib, name)
-
-
 @pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
 def test_k3_host_build_matches_plain(host_libs, fast):
     params = fast_solver(MOVE05_PARAMS) if fast else MOVE05_PARAMS
@@ -149,7 +223,7 @@ def test_k3_host_build_matches_plain(host_libs, fast):
     lib = host_libs["k3"]
     runs = [cuda_move.count_ops(qpos, qvel, ws, ctrl, params,
                                 frame_skip=FRAME_SKIP, lib=lb)
-            for lb in (lib, TeamRowsLib(lib))]
+            for lb in (lib, TeamRowsLib(lib, "k3"))]
     for counts, *host in runs:
         assert_state_close(host, plain)
         # only included contacts are stored, so K3 does fewer operations on
@@ -210,6 +284,60 @@ def test_k3_wrapper_launches_the_instantiation_the_header_names(
         assert cuda_move.launch_config(dtype, 1, lib) == (
             team, 32 // team, 32 // team * size * nbytes)
         assert cuda_move.launch_config(dtype, X, lib) == (1, 32, 0)
+
+
+def test_k1_wrapper_launches_the_instantiation_the_header_names(
+        host_libs, monkeypatch):
+    """The K1 wrapper hands the launch the team that the library's
+    k1_launch_config gives for the batch: the `.cu` header's small-batch
+    team below its crossover, one lane per env from the crossover on;
+    `launches_by_team` counts each launch under its team. The crossover
+    lies above the CLI's training batch of 1,024 envs, so that the sharded
+    runs (2 x 512, 4 x 256) take the instantiation of one process at
+    1,024."""
+    lib = host_libs["k1"]
+    header = (kernel_build.CSRC / cuda_step.SOURCE).read_text()
+    team = int(re.search(r"#define BRT_K1_TEAM (\d+)", header).group(1))
+    X = cuda_step.crossover(lib)
+    assert f"#define BRT_K1_CROSSOVER {X}\n" in header and team == 32
+    assert 1024 < X <= 4096
+    batches = (1, 1024, X - 1, X, 4096)
+    launched = []
+
+    class Lib:
+        """The host library, with a launch that records its team."""
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        def k1_control_step_f32(self, *args):
+            launched.append(args[-2])
+            return 0
+
+    monkeypatch.setattr(cuda_step, "_lib", Lib())
+    monkeypatch.setattr(cuda_step, "launches", 0)
+    monkeypatch.setattr(cuda_step, "launches_by_team", {})
+    monkeypatch.setattr(cuda_step, "check_kernel_args", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    for B in batches:
+        cuda_step.control_step_cuda(
+            *(torch.zeros(B, n) for n in (9, 8, 8, 2)), None,
+            rc.ENV01_PARAMS)
+    assert launched == [cuda_step.launch_config(torch.float32, B, lib)[0]
+                        for B in batches] == [team, team, team, 1, 1]
+    assert cuda_step.launches == len(batches)
+    assert cuda_step.launches_by_team == {team: 3, 1: 2}
+    # the team keeps the env's 64 rows (13 columns of 65, 44 Hessian and
+    # gradient entries) in shared memory, one env per one-warp block; one
+    # lane keeps them in its own local array
+    size = 13 * 65 + 44
+    for dtype, nbytes in ((torch.float32, 4), (torch.float64, 8)):
+        assert cuda_step.launch_config(dtype, 1, lib) == (
+            team, 32 // team, 32 // team * size * nbytes)
+        assert cuda_step.launch_config(dtype, X, lib) == (1, 32, 0)
+    assert cuda_step.launch_config(torch.float32, 1, lib)[2] == 3556
 
 
 def test_k2_wrapper_launches_the_instantiation_the_header_names(

@@ -294,13 +294,18 @@ def test_kernel_module_imports_and_builds_lazily():
 @pytest.mark.cuda
 def test_k1_matches_plain_on_the_card():
     """K1 against its plain version on the GPU (float64, a short control
-    step, with and without friction) at B = 1 and at a ragged batch that
-    is no multiple of the envs per block (when a block holds several)."""
+    step, with and without friction) at B = 1 and at ragged batches that
+    are no multiple of the envs per block (when a block holds several),
+    on each side of the crossover, so through both instantiations."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (and nvcc to build K1)")
     g = torch.Generator().manual_seed(0)
-    envs = cuda_step.launch_config(torch.float64)[1]   # per block
-    for B in (1, 37):
+    X = cuda_step.crossover()
+    team = cuda_step.launch_config(torch.float64, 1)[0]
+    assert team > 1
+    for B in (1, 37, X - 3, X + 5):
+        lanes, envs, _ = cuda_step.launch_config(torch.float64, B)
+        assert lanes == (team if B < X else 1)
         assert B == 1 or envs == 1 or B % envs
         qpos = torch.zeros(B, 9, dtype=torch.float64)
         qpos[:, 3] = 1.0
@@ -321,8 +326,8 @@ def test_k1_matches_plain_on_the_card():
             for a, b in zip(out, ref):
                 torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9)
     print(json.dumps(cuda_step.build_info["resources"]),
-          cuda_step.launch_config(torch.float32),
-          cuda_step.launch_config(torch.float64))
+          *(cuda_step.launch_config(dtype, B)
+            for dtype in (torch.float32, torch.float64) for B in (1, X)))
 
 
 def block_states(B, seed=0):
@@ -531,10 +536,11 @@ def test_k1_checked_build_on_the_card(monkeypatch):
     """A checked build of K1 (-DBRT_CHECK_ROWS: every row-store index held
     to its range, the team's lanes to the same row count and state; a
     breach traps) runs a whole control step at Env01 serving's batch and at
-    a ragged batch of the training rollout's size, on robot-floor states
-    in every contact regime, in float32 and float64, at both grades and
-    with per-env friction: two launches give the same bits, and the output
-    agrees with the plain version."""
+    a ragged batch of the training rollout's size (the team of 32), and at
+    a ragged batch above the crossover (one lane per env), on robot-floor
+    states in every contact regime, in float32 and float64, at both grades
+    and with per-env friction: two launches give the same bits, and the
+    output agrees with the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (and nvcc to build K1)")
     import numpy as np
@@ -545,7 +551,10 @@ def test_k1_checked_build_on_the_card(monkeypatch):
         "k1_checked", cuda_step.SOURCE, info,
         defines=("-DBRT_CHECK_ROWS",))))
     print(json.dumps(info["resources"]))
-    for B in (256, 1031):
+    X = cuda_step.crossover()
+    assert [cuda_step.launch_config(torch.float32, B)[0]
+            for B in (256, 1031, X + 61)] == [32, 32, 1]
+    for B in (256, 1031, X + 61):
         qpos, qvel, ws, ctrl, fric = chip_smoke.random_states_np(
             np.random.default_rng(3), B)
         for dtype in (torch.float32, torch.float64):

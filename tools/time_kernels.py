@@ -2,25 +2,28 @@
 turns, in one process on one GPU.
 
     python tools/time_kernels.py [--variant K2:BRT_K2_TEAM=8 ...]
-                                 [--old-csrc DIR]
+                                 [--old-csrc DIR] [--only K1 ...]
                                  [--rounds 2] [--out FILE]
 
 Builds K1 (`csrc/control_step.cu`), K2 (`csrc/control_step14.cu`) and K3
 (`csrc/control_step_walls.cu`) as they are, once more for each --variant KERNEL:NAME=VALUE[:NAME=VALUE...] with those macros
-defined (`BRT_K1_TEAM` / `BRT_K2_TEAM` / `BRT_K3_TEAM`: lanes per env, for
-K2 and K3 below their (first) crossover; `BRT_K2_MID_TEAM`: K2's middle
-team; `BRT_K1_MINB` / `BRT_K2_MINB`: the blocks per SM that
-`__launch_bounds__` asks registers for; `BRT_K2_MID`, `BRT_K2_CROSSOVER` /
-`BRT_K3_CROSSOVER`: the batch from which K2 runs its middle team and its
-team of 8, and K3 one lane per env, 0 for always, a large one for never),
-and,
-with --old-csrc, from another checkout's `csrc/` directory (an earlier
-design with the same C interface, or for K2 and K3 the one of their
-designs that took no team), all nvcc runs started together. The inputs
-are the states chip_smoke.py times: the Env01-v2, Env03-v2 and EnvMove05-v1
-main paths (4096 envs, 25 steps of the checked-in policies, fast solver),
-run through the default build. Cases: K1 at B = 4096 and 256 (Env01
-serving's batch), fast grade; K2 at B = 1 (cli test), 512 (the evals),
+defined (`BRT_K1_TEAM` / `BRT_K2_TEAM` / `BRT_K3_TEAM`: lanes per env
+below their (first) crossover; `BRT_K2_MID_TEAM`: K2's middle team;
+`BRT_K1_MINB` / `BRT_K2_MINB`: the blocks per SM that `__launch_bounds__`
+asks registers for; `BRT_K2_MID`, `BRT_K2_CROSSOVER` / `BRT_K1_CROSSOVER`
+/ `BRT_K3_CROSSOVER`: the batch from which K2 runs its middle team and its
+team of 8, and K1 and K3 one lane per env, 0 for always, a large one for
+never), and, with --old-csrc, from another checkout's `csrc/` directory
+(an earlier design with the same C interface, or for K1, K2 and K3 the
+one of their designs that took no team), all nvcc runs started together;
+--only names the kernels to build and time (all three by default). The
+inputs are states of the kind chip_smoke.py times: the Env01-v2, Env03-v2
+and EnvMove05-v1 main paths (4096 envs, 25 steps of the checked-in
+policies, fast solver), run through the default build, each with the
+noise of its own seeded generator (K1's draws are chip_smoke.py's). Cases: K1 at B = 256 (Env01
+serving's batch), 512, 1024 (training), 1536, 2048, 2112 (one wave of
+its 32-lane team), 2176, 3072 and 4096, fast and exact grade; K2 at B = 1
+(cli test), 512 (the evals),
 1024 (training and the flagship serving), 2048 and 4096, fast and exact
 grade, at 1,792 (the oracle's generations), fast grade, and at 896 on
 the MPC expert's lockstep batch (14 impact states x 64 candidates), fast
@@ -61,6 +64,11 @@ import numpy as np
 import torch
 
 import chip_smoke
+
+
+# the seed of each kernel's main path's noise generator: K1's draws are
+# those of chip_smoke.py's Env01-v2 main path, which it runs first
+MAIN_PATH_SEEDS = {"K1": 1, "K2": 2, "K3": 3}
 
 
 def main_path_inputs(brt, env_id, policy_path, gen):
@@ -144,6 +152,35 @@ def serving_seconds(brt, grade):
     return time.perf_counter() - t0, float(rets.mean())
 
 
+class OldK1:
+    """A K1 library of the design with one team (its C interface: no team
+    argument, no k1_crossover, k1_launch_config without a batch) at
+    `path`, bound to the current wrapper's calls."""
+
+    def __init__(self, path):
+        from balance_robot_tpu_torch.physics import cuda_step
+        self.lib = lib = ctypes.CDLL(str(path))
+        P = ctypes.POINTER(cuda_step._params_struct()[1])
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        for name in ("k1_control_step_f32", "k1_control_step_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr] * 8 + [i32, P] + [i32] * 4 + [ptr]
+            fn.restype = i32
+        lib.k1_launch_config.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    def k1_launch_config(self, f64, B, team, envs, smem):
+        self.lib.k1_launch_config(f64, team, envs, smem)
+
+    def k1_control_step_f32(self, *args):
+        return self.lib.k1_control_step_f32(*args[:-2], args[-1])
+
+    def k1_control_step_f64(self, *args):
+        return self.lib.k1_control_step_f64(*args[:-2], args[-1])
+
+
 class OldK2:
     """A K2 library of the design with one team (its C interface: no team
     argument, no k2_crossover, k2_launch_config without a batch) at
@@ -221,13 +258,9 @@ def by_kind(kernel, ref):
 def launch_shapes(mod, lib, dtype):
     """{batches: (lanes per env, envs per block, shared bytes per block)}
     of a build, or {} for a build without a launch-config entry."""
-    from balance_robot_tpu_torch.physics import cuda_step
-    if mod.LABEL == "k1":
-        return {"all": cuda_step.read_launch_config(lib.k1_launch_config,
-                                                    dtype)}
     if isinstance(lib, OldK3):
         return {}
-    if isinstance(lib, OldK2):
+    if isinstance(lib, (OldK1, OldK2)):
         return {"all": mod.launch_config(dtype, 1, lib)}
     starts = {1, mod.crossover(lib)}
     if mod.LABEL == "k2":
@@ -252,6 +285,8 @@ def main():
                          "K2:BRT_K2_TEAM=8:BRT_K2_MINB=4")
     ap.add_argument("--old-csrc", type=pathlib.Path,
                     help="csrc/ of an earlier design to time in turns")
+    ap.add_argument("--only", action="append", choices=("K1", "K2", "K3"),
+                    help="time this kernel (repeatable); all three if none")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--out", type=pathlib.Path,
                     default=pathlib.Path("build/time_kernels.json"))
@@ -265,11 +300,14 @@ def main():
     from balance_robot_tpu_torch.physics import block_step as bs
     from balance_robot_tpu_torch.physics import cuda_block, cuda_move
     from balance_robot_tpu_torch.physics import cuda_step, kernel_build
+    from balance_robot_tpu_torch.physics import robot_core as rc
 
     # ---- builds, all nvcc runs started together
     kernels = {"K1": (cuda_step, cuda_step.control_step_cuda),
                "K2": (cuda_block, cuda_block.control_step14_cuda),
                "K3": (cuda_move, cuda_move.control_step_walls_cuda)}
+    kernels = {k: v for k, v in kernels.items()
+               if not opts.only or k in opts.only}
     specs = []       # (kernel, build name, csrc, defines)
     for name in kernels:
         specs.append((name, "default", None, ()))
@@ -289,8 +327,11 @@ def main():
         info = {}
         path = kernel_build.build(f"{mod.LABEL}_{i}", mod.SOURCE, info, proc,
                                   csrc, defines)
-        if k == "K3" and not hasattr(ctypes.CDLL(str(path)),
-                                     "k3_launch_config"):
+        if k == "K1" and not hasattr(ctypes.CDLL(str(path)),
+                                     "k1_crossover"):
+            lib = OldK1(path)
+        elif k == "K3" and not hasattr(ctypes.CDLL(str(path)),
+                                       "k3_launch_config"):
             lib = OldK3(path)
         elif k == "K2" and not hasattr(ctypes.CDLL(str(path)),
                                        "k2_crossover"):
@@ -312,61 +353,73 @@ def main():
     for k, (mod, _) in kernels.items():
         mod._lib = libs[k, "default"]
 
-    # ---- inputs: the main paths' states, through the default builds
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(1)
-    with torch.inference_mode():
-        env01, s01, _ = main_path_inputs(brt, "Env01-v2", chip_smoke.POLICY,
-                                         gen)
-        env03, s03, s03_first = main_path_inputs(
-            brt, "Env03-v2", chip_smoke.POLICY03, gen)
-        env_move, smove, _ = main_path_inputs(
-            brt, "EnvMove05-v1", chip_smoke.POLICY_MOVE, gen)
+    # ---- inputs: the main paths' states, through the default builds, each
+    # kernel's path with the noise of its own generator (MAIN_PATH_SEEDS),
+    # so that --only changes which kernels run and not their inputs
+    def gen_for(kernel):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(MAIN_PATH_SEEDS[kernel])
+        return gen
 
+    with torch.inference_mode():
         def on_card(arrays):
             """float32 CUDA tensors (qpos, qvel, zero warm start, ctrl)."""
             t = [torch.tensor(x, dtype=torch.float32, device="cuda")
                  for x in arrays]
             return [t[0], t[1], torch.zeros_like(t[1]), t[2]]
 
-        cases = [("K1", 4096, "fast", s01, (None, env01.params)),
-                 ("K1", 256, "fast", s01, (None, env01.params))]
-        q, v, u = chip_smoke.random_states14(np.random.default_rng(5),
-                                             chip_smoke.N_ENVS)
-        impact = on_card((q, v, u))
-        # the MPC expert's plan rollouts: 14 states of the block against the
-        # robot (random_states14's kinds 4 and 5), 64 candidates each
-        rows = np.repeat(np.nonzero(np.arange(len(q)) % 6 >= 4)[0][:14], 64)
-        lockstep = on_card((q[rows], v[rows], u[rows] + 0.5 * np.random.
-                            default_rng(8).normal(size=(len(rows), 2))))
-        grades = {"fast": (env03.params,), "exact": (bs.ENV03_PARAMS,)}
-        cases += [("K2", B, grade, s03, grades[grade])
-                  for grade in grades
-                  for B in (1, 512, 1024, 2048, 4096)]
-        cases += [("K2", 896, grade + " lockstep", lockstep, grades[grade])
-                  for grade in grades]
-        cases += [("K2", 1792, "fast", s03, (env03.params,)),
-                  ("K2", 4096, "fast impact", impact, (env03.params,)),
-                  ("K2", 512, "fast impact", impact, (env03.params,)),
-                  ("K2", 4096, "fast first-step", s03_first,
-                   (env03.params,))]
-        at_wall = on_card(chip_smoke.random_states_walls(
-            np.random.default_rng(5), chip_smoke.N_ENVS))
-        fast = (env_move.params,)
-        cases += [("K3", 4096, "fast", smove, fast),
-                  ("K3", 2048, "fast", smove, fast),
-                  ("K3", 1088, "fast", smove, fast),
-                  ("K3", 1056, "fast", smove, fast),
-                  ("K3", 1024, "fast", smove, fast),
-                  ("K3", 512, "fast", smove, fast),
-                  ("K3", 512, "exact", smove, (MOVE05_PARAMS,)),
-                  ("K3", 4096, "fast at-wall", at_wall, fast),
-                  ("K3", 512, "fast at-wall", at_wall, fast)]
-        # phase 3c's float32 K3 checks, held per kind to both plain
-        # versions
-        check3 = chip_smoke.check_states(cuda_move.crossover())["K3"]
-        cases += [("K3", B, "fast phase-3c", on_card(draws[2]), fast)
-                  for B, draws in check3.items()]
+        cases = []
+        if "K1" in kernels:
+            env01, s01, _ = main_path_inputs(brt, "Env01-v2",
+                                             chip_smoke.POLICY, gen_for("K1"))
+            cases += [("K1", B, grade, s01, (None, params))
+                      for grade, params in (("fast", env01.params),
+                                            ("exact", rc.ENV01_PARAMS))
+                      for B in (256, 512, 1024, 1536, 2048, 2112, 2176,
+                                3072, 4096)]
+        if "K2" in kernels:
+            env03, s03, s03_first = main_path_inputs(
+                brt, "Env03-v2", chip_smoke.POLICY03, gen_for("K2"))
+            q, v, u = chip_smoke.random_states14(np.random.default_rng(5),
+                                                 chip_smoke.N_ENVS)
+            impact = on_card((q, v, u))
+            # the MPC expert's plan rollouts: 14 states of the block against
+            # the robot (random_states14's kinds 4 and 5), 64 candidates each
+            rows = np.repeat(np.nonzero(np.arange(len(q)) % 6 >= 4)[0][:14],
+                             64)
+            lockstep = on_card((q[rows], v[rows], u[rows] + 0.5 * np.random.
+                                default_rng(8).normal(size=(len(rows), 2))))
+            grades = {"fast": (env03.params,), "exact": (bs.ENV03_PARAMS,)}
+            cases += [("K2", B, grade, s03, grades[grade])
+                      for grade in grades
+                      for B in (1, 512, 1024, 2048, 4096)]
+            cases += [("K2", 896, grade + " lockstep", lockstep,
+                       grades[grade]) for grade in grades]
+            cases += [("K2", 1792, "fast", s03, (env03.params,)),
+                      ("K2", 4096, "fast impact", impact, (env03.params,)),
+                      ("K2", 512, "fast impact", impact, (env03.params,)),
+                      ("K2", 4096, "fast first-step", s03_first,
+                       (env03.params,))]
+        if "K3" in kernels:
+            env_move, smove, _ = main_path_inputs(
+                brt, "EnvMove05-v1", chip_smoke.POLICY_MOVE, gen_for("K3"))
+            at_wall = on_card(chip_smoke.random_states_walls(
+                np.random.default_rng(5), chip_smoke.N_ENVS))
+            fast = (env_move.params,)
+            cases += [("K3", 4096, "fast", smove, fast),
+                      ("K3", 2048, "fast", smove, fast),
+                      ("K3", 1088, "fast", smove, fast),
+                      ("K3", 1056, "fast", smove, fast),
+                      ("K3", 1024, "fast", smove, fast),
+                      ("K3", 512, "fast", smove, fast),
+                      ("K3", 512, "exact", smove, (MOVE05_PARAMS,)),
+                      ("K3", 4096, "fast at-wall", at_wall, fast),
+                      ("K3", 512, "fast at-wall", at_wall, fast)]
+            # phase 3c's float32 K3 checks, held per kind to both plain
+            # versions
+            check3 = chip_smoke.check_states(cuda_move.crossover())["K3"]
+            cases += [("K3", B, "fast phase-3c", on_card(draws[2]), fast)
+                      for B, draws in check3.items()]
         for k, B, grade, states, extra in cases:
             mod, fn = kernels[k]
             args = tuple(t[:B].contiguous() for t in states) + extra
@@ -410,7 +463,7 @@ def main():
         paths = (("K1", "Env01-v2", chip_smoke.POLICY),
                  ("K2", "Env03-v2", chip_smoke.POLICY03),
                  ("K3", "EnvMove05-v1", chip_smoke.POLICY_MOVE))
-        for k, env_id, path in paths:
+        for k, env_id, path in (x for x in paths if x[0] in kernels):
             mod = kernels[k][0]
             names = [b for (kk, b) in libs if kk == k]
             secs = {b: [] for b in names}
