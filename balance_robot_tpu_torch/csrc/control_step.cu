@@ -96,8 +96,6 @@
 // (control_step_walls.cu) is in robot_common.cuh: the algebra, the robot's
 // smooth dynamics, the floor colliders, the row emitter and both solvers.
 
-#include <type_traits>
-
 #include "robot_common.cuh"
 
 namespace k1 {
@@ -122,16 +120,13 @@ constexpr int MAXROW = 4 * NCON;
 #endif
 constexpr int TEAM = BRT_K1_TEAM;
 constexpr int CROSSOVER = BRT_K1_CROSSOVER;
-static_assert(TEAM >= 1 && TEAM <= 32 && (TEAM & (TEAM - 1)) == 0,
-              "the team is a power of two inside one warp");
 // The row store of a team of G lanes: TeamRows for several lanes (shared
 // memory), LaneRows for one (its own array, J row-major).
 template <typename T, int G>
 using Rows = std::conditional_t<G == 1, LaneRows<T, NV, MAXROW>,
                                 TeamRows<T, NV, MAXROW>>;
-
-// The lanes per env of a launch of B envs.
-inline int team_for(int B) { return B < CROSSOVER ? TEAM : 1; }
+// The rungs: the team of TEAM lanes, one lane per env from CROSSOVER on.
+using Teams = Ladder<Rows, Rung<TEAM, 1>, Rung<1, CROSSOVER>>;
 
 // ------------------------------------------------------- one substep
 template <typename T, class Tm, class R>
@@ -197,50 +192,27 @@ BRT_HD void control_step_one(const Tm& tm, const R& rw, T q[9],
     substep(tm, rw, q, v, w, c, fric, use_fric, p, newton_iters, ls_iters);
 }
 
-// Dynamic shared memory per block of the instantiation with G lanes per
-// env: none for one lane, whose rows are in its own local array.
-template <typename T>
-constexpr int smem_bytes(int G) {
-  return G == 1 ? 0
-                : THREADS / G * TeamRows<T, NV, MAXROW>::SIZE * (int)sizeof(T);
-}
-
-// One env's control step on the host, in double with every operation
-// counted, as a team of one lane on the row store Rw.
-template <class Rw>
+// One env's control step on the host (brt::count_ops) on the row store of
+// the team of G lanes.
+template <int G>
 long long count_ops(const double* qpos, const double* qvel, const double* ws,
                     const double* ctrl, double fric, double* qpos_out,
                     double* qvel_out, double* ws_out, const Params* p,
                     int newton_iters, int ls_iters, int frame_skip,
                     int use_fric) {
-  using T = Counted;
-  static T buf[Rw::SIZE];
-  const Team<1> tm{0, 1u};
-  const Rw rw{buf};
-  T q[9], v[8], w[8], c[2];
-  for (int k = 0; k < 9; ++k) q[k] = T(qpos[k]);
-  for (int k = 0; k < 8; ++k) {
-    v[k] = T(qvel[k]);
-    w[k] = T(ws[k]);
-  }
-  c[0] = T(ctrl[0]);
-  c[1] = T(ctrl[1]);
-  g_ops = 0;
-  control_step_one(tm, rw, q, v, w, c, T(fric), use_fric != 0, *p,
-                   newton_iters, ls_iters, frame_skip);
-  for (int k = 0; k < 9; ++k) qpos_out[k] = q[k].v;
-  for (int k = 0; k < 8; ++k) {
-    qvel_out[k] = v[k].v;
-    ws_out[k] = w[k].v;
-  }
-  return g_ops;
+  return brt::count_ops<9, 8, Rows<Counted, G>>(
+      qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out,
+      [&](const auto& tm, const auto& rw, Counted* q, Counted* v, Counted* w,
+          const Counted* c) {
+        control_step_one(tm, rw, q, v, w, c, Counted(fric), use_fric != 0,
+                         *p, newton_iters, ls_iters, frame_skip);
+      });
 }
 
 #ifdef __CUDACC__
-// One warp per block, THREADS / G teams of G lanes, one env per team; a
-// team of several lanes keeps its rows in its slice of the block's dynamic
-// shared memory and has its registers capped for BRT_K1_MINB blocks per
-// SM, a team of one keeps them in its own local array.
+// One warp per block, THREADS / G teams of G lanes, one env per team
+// (brt::step_envs); a team of several lanes has its registers capped for
+// BRT_K1_MINB blocks per SM.
 template <typename T, int G>
 __global__ void __launch_bounds__(THREADS, G == 1 ? 1 : BRT_K1_MINB)
     control_step_kernel(
@@ -249,65 +221,21 @@ __global__ void __launch_bounds__(THREADS, G == 1 ? 1 : BRT_K1_MINB)
         const T* __restrict__ fric, T* __restrict__ qpos_out,
         T* __restrict__ qvel_out, T* __restrict__ ws_out, int B, Params p,
         int newton_iters, int ls_iters, int frame_skip, int use_fric) {
-  using Rw = Rows<T, G>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  alignas(16) T own[G == 1 ? Rw::SIZE : 1];
-  const int team = threadIdx.x / G;
-  const int i = blockIdx.x * (THREADS / G) + team;
-  if (i >= B) return;
-  const Team<G> tm{(int)threadIdx.x % G, team_mask(G, threadIdx.x % 32)};
-  const Rw rw{G == 1 ? own : reinterpret_cast<T*>(smem) + team * Rw::SIZE};
-  T q[9], v[8], w[8], c[2];
-  for (int k = 0; k < 9; ++k) q[k] = qpos[9 * i + k];
-  for (int k = 0; k < 8; ++k) {
-    v[k] = qvel[8 * i + k];
-    w[k] = ws[8 * i + k];
-  }
-  c[0] = ctrl[2 * i];
-  c[1] = ctrl[2 * i + 1];
-  T f = use_fric ? fric[i] : T(0.0);
-  control_step_one(tm, rw, q, v, w, c, f, use_fric != 0, p, newton_iters,
-                   ls_iters, frame_skip);
-  if (tm.lane != 0) return;
-  for (int k = 0; k < 9; ++k) qpos_out[9 * i + k] = q[k];
-  for (int k = 0; k < 8; ++k) {
-    qvel_out[8 * i + k] = v[k];
-    ws_out[8 * i + k] = w[k];
-  }
+  step_envs<T, Team<G>, Rows<T, G>, 9, 8>(
+      qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out, B,
+      [&](const Team<G>& tm, const Rows<T, G>& rw, T* q, T* v, T* w,
+          const T* c, int i) {
+        T f = use_fric ? fric[i] : T(0.0);
+        control_step_one(tm, rw, q, v, w, c, f, use_fric != 0, p,
+                         newton_iters, ls_iters, frame_skip);
+      });
 }
 
-template <typename T, int G>
-int launch_team(const T* qpos, const T* qvel, const T* ws, const T* ctrl,
-                const T* fric, T* qpos_out, T* qvel_out, T* ws_out, int B,
-                const Params* p, int newton_iters, int ls_iters,
-                int frame_skip, int use_fric, void* stream) {
-  const int smem = smem_bytes<T>(G);
-  int err = allow_smem(control_step_kernel<T, G>, smem);
-  if (err) return err;
-  const int envs = THREADS / G;
-  const int blocks = (B + envs - 1) / envs;
-  control_step_kernel<T, G><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      qpos, qvel, ws, ctrl, fric, qpos_out, qvel_out, ws_out, B, *p,
-      newton_iters, ls_iters, frame_skip, use_fric);
-  return (int)cudaGetLastError();
-}
-
-// `team` picks the instantiation: TEAM or 1 lane per env.
+// The kernel's instantiation for T and the rung of a team of g lanes.
 template <typename T>
-int launch(const T* qpos, const T* qvel, const T* ws, const T* ctrl,
-           const T* fric, T* qpos_out, T* qvel_out, T* ws_out, int B,
-           const Params* p, int newton_iters, int ls_iters, int frame_skip,
-           int use_fric, int team, void* stream) {
-  if (team == TEAM)
-    return launch_team<T, TEAM>(qpos, qvel, ws, ctrl, fric, qpos_out,
-                                qvel_out, ws_out, B, p, newton_iters,
-                                ls_iters, frame_skip, use_fric, stream);
-  if (team == 1)
-    return launch_team<T, 1>(qpos, qvel, ws, ctrl, fric, qpos_out, qvel_out,
-                             ws_out, B, p, newton_iters, ls_iters,
-                             frame_skip, use_fric, stream);
-  return (int)cudaErrorInvalidValue;
-}
+constexpr auto kernel_of = [](auto g) {
+  return control_step_kernel<T, decltype(g)::value>;
+};
 #endif
 
 }  // namespace k1
@@ -325,9 +253,10 @@ int k1_control_step_f32(const float* qpos, const float* qvel, const float* ws,
                         const k1::Params* p, int newton_iters, int ls_iters,
                         int frame_skip, int use_fric, int team,
                         void* stream) {
-  return k1::launch(qpos, qvel, ws, ctrl, fric, qpos_out, qvel_out, ws_out, B,
-                    p, newton_iters, ls_iters, frame_skip, use_fric, team,
-                    stream);
+  return k1::Teams::launch<float>(
+      team, B, stream, k1::kernel_of<float>, qpos, qvel, ws, ctrl, fric,
+      qpos_out, qvel_out, ws_out, B, *p, newton_iters, ls_iters, frame_skip,
+      use_fric);
 }
 
 int k1_control_step_f64(const double* qpos, const double* qvel,
@@ -337,9 +266,10 @@ int k1_control_step_f64(const double* qpos, const double* qvel,
                         const k1::Params* p, int newton_iters, int ls_iters,
                         int frame_skip, int use_fric, int team,
                         void* stream) {
-  return k1::launch(qpos, qvel, ws, ctrl, fric, qpos_out, qvel_out, ws_out, B,
-                    p, newton_iters, ls_iters, frame_skip, use_fric, team,
-                    stream);
+  return k1::Teams::launch<double>(
+      team, B, stream, k1::kernel_of<double>, qpos, qvel, ws, ctrl, fric,
+      qpos_out, qvel_out, ws_out, B, *p, newton_iters, ls_iters, frame_skip,
+      use_fric);
 }
 #endif
 
@@ -349,9 +279,7 @@ int k1_crossover() { return k1::CROSSOVER; }
 // The launch shape for B envs: lanes per env, envs per block and dynamic
 // shared memory per block for float (f64 = 0) or double (f64 = 1).
 void k1_launch_config(int f64, int B, int* team, int* envs, int* smem) {
-  *team = k1::team_for(B);
-  *envs = brt::THREADS / *team;
-  *smem = f64 ? k1::smem_bytes<double>(*team) : k1::smem_bytes<float>(*team);
+  k1::Teams::launch_config(f64, B, team, envs, smem);
 }
 
 // One env's control step on the host in double precision, as a team of one
@@ -363,9 +291,9 @@ long long k1_count_ops(const double* qpos, const double* qvel,
                        double* qpos_out, double* qvel_out, double* ws_out,
                        const k1::Params* p, int newton_iters, int ls_iters,
                        int frame_skip, int use_fric) {
-  return k1::count_ops<k1::Rows<brt::Counted, 1>>(
-      qpos, qvel, ws, ctrl, fric, qpos_out, qvel_out, ws_out, p,
-      newton_iters, ls_iters, frame_skip, use_fric);
+  return k1::count_ops<1>(qpos, qvel, ws, ctrl, fric, qpos_out, qvel_out,
+                          ws_out, p, newton_iters, ls_iters, frame_skip,
+                          use_fric);
 }
 
 // The same on the row store of the team instantiation (TeamRows, the
@@ -376,9 +304,9 @@ long long k1_count_ops_team_rows(const double* qpos, const double* qvel,
                                  double* qvel_out, double* ws_out,
                                  const k1::Params* p, int newton_iters,
                                  int ls_iters, int frame_skip, int use_fric) {
-  return k1::count_ops<k1::Rows<brt::Counted, k1::TEAM>>(
-      qpos, qvel, ws, ctrl, fric, qpos_out, qvel_out, ws_out, p,
-      newton_iters, ls_iters, frame_skip, use_fric);
+  return k1::count_ops<k1::TEAM>(qpos, qvel, ws, ctrl, fric, qpos_out,
+                                 qvel_out, ws_out, p, newton_iters, ls_iters,
+                                 frame_skip, use_fric);
 }
 
 }  // extern "C"

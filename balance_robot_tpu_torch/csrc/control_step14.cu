@@ -145,22 +145,17 @@ constexpr int MAIN_TEAM = 8;
 constexpr int CROSSOVER = BRT_K2_CROSSOVER;
 constexpr int MID = BRT_K2_MID;
 constexpr int MID_TEAM = BRT_K2_MID_TEAM;
-static_assert(TEAM >= 1 && TEAM <= 32 && (TEAM & (TEAM - 1)) == 0 &&
-                  MID_TEAM >= 1 && MID_TEAM <= 32 &&
-                  (MID_TEAM & (MID_TEAM - 1)) == 0,
-              "a team is a power of two inside one warp");
 // Every instantiation takes its row sums as a team of 32 lanes would
 // (Team's W): the bits of an env's step do not depend on the batch.
 constexpr int SUM_LANES = 32;
 constexpr int NCALL = 7;         // collider calls per substep
 constexpr int COUPLE_CALL = 4;   // the first call of a robot-block pair
-template <typename T>
+// Every team keeps its rows in shared memory.
+template <typename T, int G = 1>
 using Rows = TeamRows<T, NV, MAXROW>;
-
-// The lanes per env of a launch of B envs.
-inline int team_for(int B) {
-  return B >= CROSSOVER ? MAIN_TEAM : B >= MID ? MID_TEAM : TEAM;
-}
+// The rungs: TEAM lanes, MID_TEAM from MID on, MAIN_TEAM from CROSSOVER on.
+using Teams = Ladder<Rows, Rung<TEAM, 1>, Rung<MID_TEAM, MID>,
+                     Rung<MAIN_TEAM, CROSSOVER>>;
 
 struct Params14 {
   Params robot;
@@ -403,16 +398,10 @@ BRT_HD void control_step_one(const Tm& tm, const Rows<T>& rw, T q[16],
     substep(tm, rw, q, v, w, c, p, newton_iters, ls_iters);
 }
 
-// Dynamic shared memory per block of the instantiation with G lanes per
-// env: each env's rows in its slice.
-template <typename T>
-constexpr int smem_bytes(int G) {
-  return THREADS / G * Rows<T>::SIZE * (int)sizeof(T);
-}
-
 #ifdef __CUDACC__
-// One warp per block, THREADS / G teams of G lanes, one env per team; each
-// team's rows in its slice of the block's dynamic shared memory.
+// One warp per block, THREADS / G teams of G lanes, one env per team
+// (brt::step_envs), each team's rows in its slice of the block's dynamic
+// shared memory.
 template <typename T, int G>
 __global__ void __launch_bounds__(THREADS, BRT_K2_MINB) control_step14_kernel(
     const T* __restrict__ qpos, const T* __restrict__ qvel,
@@ -420,69 +409,20 @@ __global__ void __launch_bounds__(THREADS, BRT_K2_MINB) control_step14_kernel(
     T* __restrict__ qpos_out, T* __restrict__ qvel_out,
     T* __restrict__ ws_out, int B, Params14 p, int newton_iters,
     int ls_iters, int frame_skip) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int team = threadIdx.x / G;
-  const int i = blockIdx.x * (THREADS / G) + team;
-  if (i >= B) return;
-  const Team<G, SUM_LANES> tm{(int)threadIdx.x % G,
-                              team_mask(G, threadIdx.x % 32)};
-  const Rows<T> rw{reinterpret_cast<T*>(smem) + team * Rows<T>::SIZE};
-  T q[16], v[14], w[14], c[2];
-  for (int k = 0; k < 16; ++k) q[k] = qpos[16 * i + k];
-  for (int k = 0; k < 14; ++k) {
-    v[k] = qvel[14 * i + k];
-    w[k] = ws[14 * i + k];
-  }
-  c[0] = ctrl[2 * i];
-  c[1] = ctrl[2 * i + 1];
-  control_step_one(tm, rw, q, v, w, c, p, newton_iters, ls_iters,
-                   frame_skip);
-  if (tm.lane != 0) return;
-  for (int k = 0; k < 16; ++k) qpos_out[16 * i + k] = q[k];
-  for (int k = 0; k < 14; ++k) {
-    qvel_out[14 * i + k] = v[k];
-    ws_out[14 * i + k] = w[k];
-  }
+  step_envs<T, Team<G, SUM_LANES>, Rows<T>, 16, 14>(
+      qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out, B,
+      [&](const Team<G, SUM_LANES>& tm, const Rows<T>& rw, T* q, T* v, T* w,
+          const T* c, int) {
+        control_step_one(tm, rw, q, v, w, c, p, newton_iters, ls_iters,
+                         frame_skip);
+      });
 }
 
-template <typename T, int G>
-int launch_team(const T* qpos, const T* qvel, const T* ws, const T* ctrl,
-                T* qpos_out, T* qvel_out, T* ws_out, int B,
-                const Params14* p, int newton_iters, int ls_iters,
-                int frame_skip, void* stream) {
-  const int smem = smem_bytes<T>(G);
-  int err = allow_smem(control_step14_kernel<T, G>, smem);
-  if (err) return err;
-  const int envs = THREADS / G;
-  const int blocks = (B + envs - 1) / envs;
-  control_step14_kernel<T, G>
-      <<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-          qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out, B, *p,
-          newton_iters, ls_iters, frame_skip);
-  return (int)cudaGetLastError();
-}
-
-// `team` picks the instantiation: TEAM, MID_TEAM or MAIN_TEAM lanes per
-// env.
+// The kernel's instantiation for T and the rung of a team of g lanes.
 template <typename T>
-int launch(const T* qpos, const T* qvel, const T* ws, const T* ctrl,
-           T* qpos_out, T* qvel_out, T* ws_out, int B, const Params14* p,
-           int newton_iters, int ls_iters, int frame_skip, int team,
-           void* stream) {
-  if (team == TEAM)
-    return launch_team<T, TEAM>(qpos, qvel, ws, ctrl, qpos_out, qvel_out,
-                                ws_out, B, p, newton_iters, ls_iters,
-                                frame_skip, stream);
-  if (team == MAIN_TEAM)
-    return launch_team<T, MAIN_TEAM>(qpos, qvel, ws, ctrl, qpos_out,
-                                     qvel_out, ws_out, B, p, newton_iters,
-                                     ls_iters, frame_skip, stream);
-  if (team == MID_TEAM)
-    return launch_team<T, MID_TEAM>(qpos, qvel, ws, ctrl, qpos_out,
-                                    qvel_out, ws_out, B, p, newton_iters,
-                                    ls_iters, frame_skip, stream);
-  return (int)cudaErrorInvalidValue;
-}
+constexpr auto kernel_of = [](auto g) {
+  return control_step14_kernel<T, decltype(g)::value>;
+};
 #endif
 
 }  // namespace k2
@@ -498,8 +438,9 @@ int k2_control_step_f32(const float* qpos, const float* qvel, const float* ws,
                         float* ws_out, int B, const k2::Params14* p,
                         int newton_iters, int ls_iters, int frame_skip,
                         int team, void* stream) {
-  return k2::launch(qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out, B, p,
-                    newton_iters, ls_iters, frame_skip, team, stream);
+  return k2::Teams::launch<float>(
+      team, B, stream, k2::kernel_of<float>, qpos, qvel, ws, ctrl, qpos_out,
+      qvel_out, ws_out, B, *p, newton_iters, ls_iters, frame_skip);
 }
 
 int k2_control_step_f64(const double* qpos, const double* qvel,
@@ -508,8 +449,9 @@ int k2_control_step_f64(const double* qpos, const double* qvel,
                         int B, const k2::Params14* p, int newton_iters,
                         int ls_iters, int frame_skip, int team,
                         void* stream) {
-  return k2::launch(qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out, B, p,
-                    newton_iters, ls_iters, frame_skip, team, stream);
+  return k2::Teams::launch<double>(
+      team, B, stream, k2::kernel_of<double>, qpos, qvel, ws, ctrl, qpos_out,
+      qvel_out, ws_out, B, *p, newton_iters, ls_iters, frame_skip);
 }
 #endif
 
@@ -522,9 +464,7 @@ int k2_mid_crossover() { return k2::MID; }
 // The launch shape for B envs: lanes per env, envs per block and dynamic
 // shared memory per block for float (f64 = 0) or double (f64 = 1).
 void k2_launch_config(int f64, int B, int* team, int* envs, int* smem) {
-  *team = k2::team_for(B);
-  *envs = brt::THREADS / *team;
-  *smem = f64 ? k2::smem_bytes<double>(*team) : k2::smem_bytes<float>(*team);
+  k2::Teams::launch_config(f64, B, team, envs, smem);
 }
 
 // One env's control step on the host in double precision, as a team of one
@@ -537,28 +477,15 @@ long long k2_count_ops(const double* qpos, const double* qvel,
                        const k2::Params14* p, int newton_iters, int ls_iters,
                        int frame_skip, long long* coupled_factorizations) {
   using T = brt::Counted;
-  static T buf[k2::Rows<T>::SIZE];
-  const brt::Team<1> tm{0, 1u};
-  const k2::Rows<T> rw{buf};
-  T q[16], v[14], w[14], c[2];
-  for (int k = 0; k < 16; ++k) q[k] = T(qpos[k]);
-  for (int k = 0; k < 14; ++k) {
-    v[k] = T(qvel[k]);
-    w[k] = T(ws[k]);
-  }
-  c[0] = T(ctrl[0]);
-  c[1] = T(ctrl[1]);
-  brt::g_ops = 0;
   brt::g_coupled = 0;
-  k2::control_step_one(tm, rw, q, v, w, c, *p, newton_iters, ls_iters,
-                       frame_skip);
-  for (int k = 0; k < 16; ++k) qpos_out[k] = q[k].v;
-  for (int k = 0; k < 14; ++k) {
-    qvel_out[k] = v[k].v;
-    ws_out[k] = w[k].v;
-  }
+  const long long ops = brt::count_ops<16, 14, k2::Rows<T>>(
+      qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out,
+      [&](const auto& tm, const auto& rw, T* q, T* v, T* w, const T* c) {
+        k2::control_step_one(tm, rw, q, v, w, c, *p, newton_iters, ls_iters,
+                             frame_skip);
+      });
   *coupled_factorizations = brt::g_coupled;
-  return brt::g_ops;
+  return ops;
 }
 
 }  // extern "C"

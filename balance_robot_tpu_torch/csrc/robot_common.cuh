@@ -25,6 +25,7 @@
 #pragma once
 
 #include <cmath>
+#include <type_traits>
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -1118,5 +1119,167 @@ int allow_smem(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 #endif
+
+// ------------------------------------------------------- the launch seam
+// What K1, K2 and K3 share around their step: the ladder of teams that the
+// batch climbs, the launch of a rung's instantiation and its shape, the
+// body of a kernel of one-warp blocks, and the host driver of the
+// operation count. A kernel states its rungs, its row store, its state
+// widths and its step; its note says why each rung starts where it does.
+
+// One rung of a kernel's ladder: a team of G lanes per env from a batch of
+// FROM envs on.
+template <int G_, int FROM_>
+struct Rung {
+  static_assert(G_ >= 1 && G_ <= 32 && (G_ & (G_ - 1)) == 0,
+                "a team is a power of two inside one warp");
+  static constexpr int G = G_, FROM = FROM_;
+};
+
+// A kernel's rungs R, from the smallest batch up, on the row store
+// Rows<T, G> of a team of G lanes (LaneRows, in the thread's own array,
+// only for one lane).
+template <template <typename, int> class Rows, class... R>
+struct Ladder {
+  // The lanes per env of a launch of B envs: the last rung that B reaches
+  // (the first for any B).
+  static int team_for(int B) {
+    int g = 0;
+    ((g = g == 0 || B >= R::FROM ? R::G : g), ...);
+    return g;
+  }
+
+  // f(std::integral_constant<int, G>()) for the first rung whose team is
+  // `team` lanes, or `none` if no rung's is.
+  template <class F>
+  static int with_team(int team, int none, const F& f) {
+    int out = none;
+    bool found = false;
+    auto rung = [&](auto g) {
+      if (!found && team == decltype(g)::value) {
+        found = true;
+        out = f(g);
+      }
+    };
+    (rung(std::integral_constant<int, R::G>()), ...);
+    return out;
+  }
+
+  // Dynamic shared memory per block of the rung of G lanes: none on
+  // LaneRows, the THREADS / G teams' row stores otherwise.
+  template <typename T, int G>
+  static constexpr int smem_bytes() {
+    using Rw = Rows<T, G>;
+    return Rw::ONE_PASS ? 0 : THREADS / G * Rw::SIZE * (int)sizeof(T);
+  }
+
+  // The launch shape for B envs: lanes per env, envs per block and dynamic
+  // shared memory per block for float (f64 = 0) or double (f64 = 1).
+  static void launch_config(int f64, int B, int* team, int* envs,
+                            int* smem) {
+    *team = team_for(B);
+    *envs = THREADS / *team;
+    *smem = with_team(*team, 0, [&](auto g) {
+      constexpr int G = decltype(g)::value;
+      return f64 ? smem_bytes<double, G>() : smem_bytes<float, G>();
+    });
+  }
+
+#ifdef __CUDACC__
+  // Launch `kernel`, the instantiation for T and the rung of G lanes, for B
+  // envs on `stream`, THREADS / G envs per one-warp block; returns the CUDA
+  // error of the launch, 0 if none.
+  template <typename T, int G, class... P, class... A>
+  static int launch_team(void (*kernel)(P...), int B, void* stream,
+                         const A&... args) {
+    const int smem = smem_bytes<T, G>();
+    int err = allow_smem(kernel, smem);
+    if (err) return err;
+    const int envs = THREADS / G;
+    const int blocks = (B + envs - 1) / envs;
+    kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(args...);
+    return (int)cudaGetLastError();
+  }
+
+  // Launch kernel_of(std::integral_constant<int, G>()), the instantiation
+  // of the rung whose team is `team` lanes (what launch_config gives for
+  // B), with `args`; cudaErrorInvalidValue for a team that no rung has.
+  template <typename T, class K, class... A>
+  static int launch(int team, int B, void* stream, const K& kernel_of,
+                    const A&... args) {
+    return with_team(team, (int)cudaErrorInvalidValue, [&](auto g) {
+      return launch_team<T, decltype(g)::value>(kernel_of(g), B, stream,
+                                                args...);
+    });
+  }
+#endif
+};
+
+#ifdef __CUDACC__
+// The body of a kernel of one-warp blocks, THREADS / G teams Tm of G lanes
+// each and one env per team: env i's state in, step(tm, rw, q, v, w, c, i),
+// and lane 0's state out. A team on LaneRows keeps its rows in its own
+// local array, any other in its slice of the block's dynamic shared memory.
+template <typename T, class Tm, class Rw, int NQ, int NV, class Step>
+__device__ __forceinline__ void step_envs(
+    const T* qpos, const T* qvel, const T* ws, const T* ctrl, T* qpos_out,
+    T* qvel_out, T* ws_out, int B, const Step& step) {
+  constexpr int G = Tm::G;
+  extern __shared__ __align__(16) unsigned char smem[];
+  alignas(16) T own[Rw::ONE_PASS ? Rw::SIZE : 1];
+  const int team = threadIdx.x / G;
+  const int i = blockIdx.x * (THREADS / G) + team;
+  if (i >= B) return;
+  const Tm tm{(int)threadIdx.x % G, team_mask(G, threadIdx.x % 32)};
+  const Rw rw{Rw::ONE_PASS ? own
+                           : reinterpret_cast<T*>(smem) + team * Rw::SIZE};
+  // the loads and stores written out here, not in a helper, keep the
+  // kernels' machine code as it was (a helper reorders the PTX)
+  T q[NQ], v[NV], w[NV], c[2];
+  for (int k = 0; k < NQ; ++k) q[k] = qpos[NQ * i + k];
+  for (int k = 0; k < NV; ++k) {
+    v[k] = qvel[NV * i + k];
+    w[k] = ws[NV * i + k];
+  }
+  c[0] = ctrl[2 * i];
+  c[1] = ctrl[2 * i + 1];
+  step(tm, rw, q, v, w, c, i);
+  if (tm.lane != 0) return;
+  for (int k = 0; k < NQ; ++k) qpos_out[NQ * i + k] = q[k];
+  for (int k = 0; k < NV; ++k) {
+    qvel_out[NV * i + k] = v[k];
+    ws_out[NV * i + k] = w[k];
+  }
+}
+#endif
+
+// One env's control step on the host in double, every arithmetic
+// operation counted, as a team of one lane on the row store Rw: the state
+// in, step(tm, rw, q, v, w, c), the state out; returns the count.
+template <int NQ, int NV, class Rw, class Step>
+long long count_ops(const double* qpos, const double* qvel, const double* ws,
+                    const double* ctrl, double* qpos_out, double* qvel_out,
+                    double* ws_out, const Step& step) {
+  using T = Counted;
+  static T buf[Rw::SIZE];
+  const Team<1> tm{0, 1u};
+  const Rw rw{buf};
+  T q[NQ], v[NV], w[NV], c[2];
+  for (int k = 0; k < NQ; ++k) q[k] = T(qpos[k]);
+  for (int k = 0; k < NV; ++k) {
+    v[k] = T(qvel[k]);
+    w[k] = T(ws[k]);
+  }
+  c[0] = T(ctrl[0]);
+  c[1] = T(ctrl[1]);
+  g_ops = 0;
+  step(tm, rw, q, v, w, c);
+  for (int k = 0; k < NQ; ++k) qpos_out[k] = q[k].v;
+  for (int k = 0; k < NV; ++k) {
+    qvel_out[k] = v[k].v;
+    ws_out[k] = w[k].v;
+  }
+  return g_ops;
+}
 
 }  // namespace brt

@@ -17,32 +17,47 @@ The one source holds two instantiations of the kernel on the team solver
 of K1 and K2, and the batch size picks one: below the crossover that the
 `.cu` header names (serving batches), a team of 32 lanes per env with its
 rows in shared memory; from it on (the 4096-env main path), one thread per
-env with its rows in its own local array. `launch_config(dtype, B)` reads
-the choice from the library (`k3_launch_config`), and the launch passes it
-on; there is no other way in.
+env with its rows in its own local array. `KERNEL.launch_config(dtype, B)`
+reads the choice from the library (`k3_launch_config`), and the launch
+passes it on; there is no other way in.
 
-The kernel is built at first use by `kernel_build.py` (nvcc, ctypes).
+`KERNEL` (`cuda_kernel.Kernel`) holds the library, its launch shapes and
+crossovers, and the launch counts; the kernel is built at first use by
+`kernel_build.py` (nvcc, ctypes).
 """
 
+import ctypes
 import functools
 
-import torch
-
-from . import cuda_step
-from . import kernel_build
+from . import cuda_kernel as ck
 from . import step as st
-from ..utils import profiling
 
 LABEL, SOURCE = "k3", "control_step_walls.cu"   # library label, file in csrc/
 MAX_WALLS = 4                                   # the kernel's ParamsWalls
 
-# kernel launches since import (or since a caller reset it to 0), in all and
-# by the team of lanes per env that `launch_config` chose
-launches = 0
-launches_by_team = {}
-# filled by build(): seconds, whether the library was reused, ptxas report
-build_info = {}
-_lib = None
+
+def _type_entries(lib):
+    """Check the walls the library holds, and type K3's launch entries (an
+    nvcc build's) and count entries."""
+    lib.k3_max_walls.argtypes = []
+    lib.k3_max_walls.restype = ck.I32
+    if lib.k3_max_walls() != MAX_WALLS:
+        raise RuntimeError(f"{lib._name}: built for {lib.k3_max_walls()} "
+                           f"walls, the wrapper for {MAX_WALLS}")
+    P = ctypes.POINTER(_params_struct())
+    for name in ("k3_control_step_f32", "k3_control_step_f64"):
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = [ck.PTR] * 7 + [ck.I32, P] + [ck.I32] * 4 \
+                + [ck.PTR]
+            fn.restype = ck.I32
+    for name in ("k3_count_ops", "k3_count_ops_team_rows"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ck.DPTR] * 7 + [P] + [ck.I32] * 3
+        fn.restype = ctypes.c_longlong
+
+
+KERNEL = ck.Kernel("K3", LABEL, SOURCE, ("k3_crossover",), _type_entries)
 
 
 def control_step_walls_plain(qpos, qvel, ws, ctrl, params, frame_skip=250,
@@ -70,8 +85,7 @@ def control_step_walls(qpos, qvel, ws, ctrl, params, frame_skip=250):
 @functools.lru_cache(maxsize=None)
 def _params_struct():
     """The ctypes mirror of the kernel's ParamsWalls struct."""
-    import ctypes
-    ContactP, Params = cuda_step._params_struct()
+    ContactP, Params = ck.params_struct()
 
     class ParamsWalls(ctypes.Structure):
         _fields_ = [("robot", Params), ("wall_chassis", ContactP),
@@ -89,120 +103,34 @@ def kernel_params(p):
                          f"{len(p.walls)}")
     ch_prm, w_prm = st.wall_contact_params(p.wall_contact)
     kp = _params_struct()(
-        robot=cuda_step.kernel_params(p),
-        wall_chassis=cuda_step.contact_params(ch_prm),
-        wall_wheel=cuda_step.contact_params(w_prm), n_walls=len(p.walls))
+        robot=ck.kernel_params(p),
+        wall_chassis=ck.contact_params(ch_prm),
+        wall_wheel=ck.contact_params(w_prm), n_walls=len(p.walls))
     for i, (center, half) in enumerate(p.walls):
         kp.walls[i][:] = (*center, *half)
     return kp
-
-
-# ------------------------------------------------------------ build / load
-
-def _bind(path):
-    import ctypes
-    lib = ctypes.CDLL(str(path))
-    lib.k3_max_walls.argtypes = []
-    lib.k3_max_walls.restype = ctypes.c_int
-    if lib.k3_max_walls() != MAX_WALLS:
-        raise RuntimeError(f"{path}: built for {lib.k3_max_walls()} walls, "
-                           f"the wrapper for {MAX_WALLS}")
-    P = ctypes.POINTER(_params_struct())
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name in ("k3_control_step_f32", "k3_control_step_f64"):
-        fn = getattr(lib, name, None)
-        if fn is not None:
-            fn.argtypes = [ptr] * 7 + [i32, P] + [i32] * 4 + [ptr]
-            fn.restype = i32
-    lib.k3_crossover.argtypes = []
-    lib.k3_crossover.restype = i32
-    lib.k3_launch_config.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 3
-    lib.k3_launch_config.restype = None
-    dptr = ctypes.POINTER(ctypes.c_double)
-    for name in ("k3_count_ops", "k3_count_ops_team_rows"):
-        fn = getattr(lib, name)
-        fn.argtypes = [dptr] * 7 + [P] + [i32] * 3
-        fn.restype = ctypes.c_longlong
-    return lib
-
-
-def build(process=None):
-    """Build K3 if its sources changed, load it, and return the library.
-    `process` is a compile already started with `kernel_build.start_build`."""
-    global _lib
-    if _lib is None:
-        with profiling.setup_span("kernel.load"):
-            _lib = _bind(kernel_build.build(LABEL, SOURCE, build_info,
-                                            process))
-    return _lib
-
-
-def crossover(lib=None):
-    """The batch from which K3 runs one lane per env (the `.cu` header's
-    BRT_K3_CROSSOVER)."""
-    return (lib or build()).k3_crossover()
-
-
-def launch_config(dtype, B, lib=None):
-    """(lanes per env, envs per block, shared bytes per block) of the
-    instantiation that a launch of B envs of `dtype` (torch.float32 or
-    torch.float64) takes. `lib`: as for `count_ops`."""
-    return cuda_step.read_launch_config(
-        (lib or build()).k3_launch_config, dtype, B)
 
 
 # ------------------------------------------------------------ launch
 
 def control_step_walls_cuda(qpos, qvel, ws, ctrl, params, frame_skip=250):
     """Launch K3 on the current stream, with the instantiation that
-    `launch_config` names for the batch; CUDA tensors only."""
-    global launches
+    `KERNEL.launch_config` names for the batch; CUDA tensors only."""
     B = qpos.shape[0]
-    cuda_step.check_kernel_args("K3", qpos, [
-        ("qpos", qpos, (B, 9)), ("qvel", qvel, (B, 8)),
-        ("ws", ws, (B, 8)), ("ctrl", ctrl, (B, 2))])
-    kp = kernel_params(params)
-    qp, qv, w = (torch.empty_like(t) for t in (qpos, qvel, ws))
-    if B == 0:
-        return qp, qv, w
-    lib = build()
-    fn = (lib.k3_control_step_f32 if qpos.dtype == torch.float32
-          else lib.k3_control_step_f64)
-    team = launch_config(qpos.dtype, B, lib)[0]
-    import ctypes
-    with torch.cuda.device(qpos.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        with kernel_build.first_launch(f"{fn.__name__}/{team}"):
-            err = fn(qpos.data_ptr(), qvel.data_ptr(), ws.data_ptr(),
-                     ctrl.data_ptr(), qp.data_ptr(), qv.data_ptr(),
-                     w.data_ptr(), B, ctypes.byref(kp), params.newton_iters,
-                     params.ls_iters, frame_skip, team, stream)
-    if err != 0:
-        raise RuntimeError(f"K3 launch failed: CUDA error {err}")
-    launches += 1
-    launches_by_team[team] = launches_by_team.get(team, 0) + 1
-    return qp, qv, w
+    return KERNEL.launch([("qpos", qpos, (B, 9)), ("qvel", qvel, (B, 8)),
+                          ("ws", ws, (B, 8)), ("ctrl", ctrl, (B, 2))],
+                         kernel_params(params), params, frame_skip)
 
 
 def count_ops(qpos, qvel, ws, ctrl, params, frame_skip=250, lib=None):
     """Run K3's own source on the host, in double, for one control step of
     each env given (CPU tensors). Returns (counts, qpos', qvel', ws'): the
     arithmetic operations per env and the new state. `lib` is a library
-    bound with `_bind` (the source compiled as plain C++); by default the
-    nvcc build."""
-    import ctypes
-    lib = lib or build()
+    bound with `KERNEL.bind` (the source compiled as plain C++); by default
+    the nvcc build."""
     kp = kernel_params(params)
-    dptr = ctypes.POINTER(ctypes.c_double)
-    counts = []
-    outs = [torch.empty(qpos.shape[0], n, dtype=torch.float64)
-            for n in (9, 8, 8)]
-    for i in range(qpos.shape[0]):
-        ins = [t[i].detach().to("cpu", torch.float64).contiguous()
-               for t in (qpos, qvel, ws, ctrl)]
-        counts.append(lib.k3_count_ops(
-            *(ctypes.cast(t.data_ptr(), dptr) for t in ins),
-            *(ctypes.cast(o[i].data_ptr(), dptr) for o in outs),
-            ctypes.byref(kp), params.newton_iters, params.ls_iters,
-            frame_skip))
-    return (counts, *outs)
+
+    def count_one(entry, i, ins, outs):
+        return entry(*ins, *outs, ctypes.byref(kp), params.newton_iters,
+                     params.ls_iters, frame_skip)
+    return KERNEL.count_ops((qpos, qvel, ws, ctrl), count_one, lib)

@@ -8,8 +8,8 @@ name carries a hash of the source, of every header of `csrc/` it includes
 to a shared header rebuilds every kernel that includes it, and an unchanged
 kernel is reused. `defines` (`-D` flags) and another source directory
 (`csrc`) build a variant under its own name, for timing one design against
-another in one run (`tools/time_kernels.py`). The wrappers time a
-kernel's build or load and its first launch as set-up spans
+another in one run (`tools/time_kernels.py`). `cuda_kernel.Kernel` times
+a kernel's build or load and its first launch as set-up spans
 (`utils/profiling.setup_span`: `kernel.load`, `kernel.first_launch`).
 """
 

@@ -913,22 +913,21 @@ def bound(ops_per_env, n_envs, tensors):
                     f"{clock_mhz:.0f} MHz)"}
 
 
-def launch_shapes(module, dtype):
+def launch_shapes(kernel, dtype):
     """[(batches, (lanes per env, envs per block, shared bytes per block))]
-    of a kernel's launch: one for each of K1's and K3's two or K2's three
-    instantiations, from the batch at which it starts."""
-    starts = [1, module.crossover()]
-    if hasattr(module, "mid_crossover"):   # K2
-        starts.insert(1, module.mid_crossover())
-    return [(f" B >= {B}", module.launch_config(dtype, B)) for B in starts]
+    of a kernel's launch (`cuda_kernel.Kernel`): one for each rung of its
+    ladder (K1's and K3's two instantiations, K2's three), from the batch at
+    which it starts."""
+    return [(f" B >= {B}", kernel.launch_config(dtype, B))
+            for B in [1] + kernel.crossovers()]
 
 
-def print_build(name, module):
-    info = module.build_info
+def print_build(name, kernel):
+    info = kernel.build_info
     print(f"build: {name} in {info['seconds']:.1f} s "
           f"({'reused' if info['cached'] else 'compiled'})")
     for dtype in (torch.float32, torch.float64):
-        for batches, (team, envs, smem) in launch_shapes(module, dtype):
+        for batches, (team, envs, smem) in launch_shapes(kernel, dtype):
             print(f"  launch {str(dtype)[6:]}{batches}: a team of {team} "
                   f"lanes per env, {envs} envs per block, {smem} bytes of "
                   "shared memory per block"
@@ -951,19 +950,19 @@ def build_kernels():
     procs = {name: kernel_build.start_build(m.LABEL, m.SOURCE)
              for name, m in modules.items()}
     for name, m in modules.items():
-        m.build(procs[name])
-        print_build(name, m)
+        m.KERNEL.build(procs[name])
+        print_build(name, m.KERNEL)
     return modules
 
 
 def zero_counts(modules):
     for m in modules.values():
-        m.launches = 0
-        m.launches_by_team.clear()
+        m.KERNEL.launches = 0
+        m.KERNEL.launches_by_team.clear()
 
 
 def counts_of(modules):
-    return {name: m.launches for name, m in modules.items()}
+    return {name: m.KERNEL.launches for name, m in modules.items()}
 
 
 def run_main_path(vec, policy, gen, modules, kernel, after_step=None):
@@ -996,8 +995,8 @@ def run_main_path(vec, policy, gen, modules, kernel, after_step=None):
     check(all(finite), "main path produced non-finite values")
     check(obs.shape == (N_ENVS, vec.env.obs_dim),
           f"obs shape {tuple(obs.shape)}")
-    teams = dict(modules[kernel].launches_by_team)
-    team = modules[kernel].launch_config(torch.float32, N_ENVS)[0]
+    teams = dict(modules[kernel].KERNEL.launches_by_team)
+    team = modules[kernel].KERNEL.launch_config(torch.float32, N_ENVS)[0]
     check(teams == {team: N_STEPS}, f"{vec.env.id} main path: "
           f"{kernel}'s launches by team {teams}, not all on {team}")
     print(f"main path {vec.env.id}: {N_ENVS} envs x {N_STEPS} steps in "
@@ -1324,7 +1323,7 @@ def hold_on_path(modules, kernel, what, kept, ws_vs_f64=False):
         *(a[:16].cpu() if torch.is_tensor(a) else a for a in args),
         **kwargs)[0]))
     b = bound(ops, B, tensors + list(k))
-    team = module.launch_config(torch.float32, B)[0]
+    team = module.KERNEL.launch_config(torch.float32, B)[0]
     print(f"{kernel} B={B} f32 on {what} (a team of {team} lanes): median "
           f"{ms:.3f} ms over {TIMED_LAUNCHES} launches; plain "
           f"{plain_ms:.1f} ms ({str(p[0].dtype)[6:]}); "
@@ -1737,10 +1736,11 @@ def off_policy_phase(modules):
         print(f"serving 9d: {path} through OffPolicy's evaluator, "
               f"{SERVE_EPISODES} Env01-v2 episodes, max {SERVE_STEPS} "
               f"steps, fast grade, in {seconds:.2f} s with "
-              f"{modules['K1'].launches} K1 launches: survival "
+              f"{modules['K1'].KERNEL.launches} K1 launches: survival "
               f"{survival:.4f}, mean return {rets.mean():.4f}")
         check(counts_of(modules)["K2"] == counts_of(modules)["K3"] == 0
-              and modules["K1"].launches > 0, "9d: another kernel launched")
+              and modules["K1"].KERNEL.launches > 0,
+              "9d: another kernel launched")
         check(survival >= SURVIVAL_FLOOR,
               f"9d: {algo} survival {survival:.3f} < {SURVIVAL_FLOOR}")
 
@@ -1771,10 +1771,10 @@ def off_policy_phase(modules):
     one = one._replace(t=torch.zeros_like(one.t))
     one, obs = fresh._obs(one, fresh._noise(1, 2))
     net = mlp.from_numpy_params(params, device="cuda")
-    before = modules["K2"].launches
+    before = modules["K2"].KERNEL.launches
     with torch.no_grad():
         s2, obs2, r, _, _ = fresh.step(one, net.policy_mean(obs).clamp(-1, 1))
-    check(modules["K2"].launches == before + 1
+    check(modules["K2"].KERNEL.launches == before + 1
           and torch.isfinite(obs2).all().item()
           and torch.isfinite(r).all().item()
           and all(torch.isfinite(t).all().item() for t in s2.phys),
@@ -1847,7 +1847,7 @@ def parallel_rank_main(rank, directory):
     from balance_robot_tpu_torch.physics import cuda_step
     modules = {"K1": cuda_step, "K2": cuda_block, "K3": cuda_move}
     for m in modules.values():
-        m.build()      # the parent built them: loads the libraries
+        m.KERNEL.build()   # the parent built them: loads the libraries
     torch.backends.cuda.matmul.allow_tf32 = False
     distributed.initialize(backend="gloo",
                            init_method=f"file://{directory}/rendezvous",
@@ -2003,7 +2003,7 @@ def parallel_phase(modules):
               f"{PAR_RANKS} x {n_local} envs over gloo on one card, {iters} "
               f"iteration(s), {kernel} launches {want[kernel]} per rank at B "
               f"= {n_local} (team, envs per block, shared bytes: "
-              f"{launch_shapes(modules[kernel], dtype)}): the ranks' "
+              f"{launch_shapes(modules[kernel].KERNEL, dtype)}): the ranks' "
               f"train states and one process's at B = {PAR_ENVS} bit-equal "
               f"({len(ranks[0])} arrays); rank 0 took "
               f"{facts[0][name]['seconds']:.2f} s")
@@ -2070,22 +2070,23 @@ def workflow_spies(modules, kernel="K2"):
     def timed(kind, fn):
         def spy(*args, **kwargs):
             torch.cuda.synchronize()
-            before, t0 = modules[kernel].launches, time.perf_counter()
+            before, t0 = modules[kernel].KERNEL.launches, time.perf_counter()
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
-            log[kind].append(dict(seconds=time.perf_counter() - t0, out=out,
-                                  launches=modules[kernel].launches - before))
+            log[kind].append(dict(
+                seconds=time.perf_counter() - t0, out=out,
+                launches=modules[kernel].KERNEL.launches - before))
             return out
         return spy
 
     iteration = PPO.iteration
 
     def timed_iteration(self, ts, timer=None):
-        t, before = Timer(), modules[kernel].launches
+        t, before = Timer(), modules[kernel].KERNEL.launches
         with t("iteration"):
             out = iteration(self, ts, timer=t)
         log["iterations"].append(dict(
-            launches=modules[kernel].launches - before,
+            launches=modules[kernel].KERNEL.launches - before,
             **{k: v["mean_ms"] for k, v in t.report().items()}))
         return out
 
@@ -2300,7 +2301,7 @@ def selection_11c(modules, tmp, first, snapshot):
         SEL_EPISODES, on_start=keep)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    n_eval = modules["K2"].launches
+    n_eval = modules["K2"].KERNEL.launches
     check(np.array_equal(again[3], first[3])
           and np.array_equal(again[4], first[4]),
           "11c: two paired evals of r2i at seed 0 are not bit-equal "
@@ -2546,10 +2547,10 @@ def tools_12b(modules):
     def timed(self, ts, timer=None):
         t = Timer()
         timers.append(t)
-        rows.append(dict(updates=0, k1=modules["K1"].launches))
+        rows.append(dict(updates=0, k1=modules["K1"].KERNEL.launches))
         with t("iteration"):
             out = iteration(self, ts, timer=t)
-        rows[-1]["k1"] = modules["K1"].launches - rows[-1]["k1"]
+        rows[-1]["k1"] = modules["K1"].KERNEL.launches - rows[-1]["k1"]
         return out
 
     def counted(self, ts, idx=None, normals=None):
@@ -2655,12 +2656,13 @@ def tools_12e(modules, tmp):
         def spy(self, *args, **kwargs):
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
-            before = modules["K2"].launches
+            before = modules["K2"].KERNEL.launches
             e0.record()
             out = fn(self, *args, **kwargs)
             e1.record()
             collects.append(dict(what=what, events=(e0, e1),
-                                 launches=modules["K2"].launches - before,
+                                 launches=(modules["K2"].KERNEL.launches
+                                           - before),
                                  beta=args[4] if what == "collect" else None,
                                  out=out if what == "collect" else None))
             return out
@@ -2800,7 +2802,7 @@ def rollout_spies(modules, hold_when):
         B = table.shape[1]
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
-        before = modules["K2"].launches
+        before = modules["K2"].KERNEL.launches
         e0.record()
         if not kept and hold_when(B):
             with inputs_of_launch(modules, "K2", HOLD_AT_13) as k:
@@ -2809,7 +2811,7 @@ def rollout_spies(modules, hold_when):
         else:
             out = rollout(env, states, obs, table, *args, **kwargs)
         e1.record()
-        calls.append(dict(B=B, launches=modules["K2"].launches - before,
+        calls.append(dict(B=B, launches=modules["K2"].KERNEL.launches - before,
                           events=(e0, e1)))
         return out
 
@@ -2923,7 +2925,7 @@ def research_13b(modules, tmp):
           and z["act"].shape == (n_traj * H, 2),
           f"13b: the dump's rows {z['obs'].shape} for {n_traj} trajectories")
     gens = [c for c in calls if c["B"] == F * P]
-    by_team = dict(modules["K2"].launches_by_team)
+    by_team = dict(modules["K2"].KERNEL.launches_by_team)
     print(f"research 13b oracle_probe: F = {F}; K2 launches {counts['K2']} "
           f"(by team {by_team}) "
           f"= harvest {n_hv} (B = 512) + seed mean {H} (B = {F}) + "
@@ -3082,9 +3084,10 @@ def research_13e(modules, root):
     rollout = move_probe.rollout
 
     def spy(env, policy, grid, seeds, T, start=None):
-        before = modules["K3"].launches
+        before = modules["K3"].KERNEL.launches
         out = rollout(env, policy, grid, seeds, T, start)
-        calls.append((len(grid) * seeds, modules["K3"].launches - before))
+        calls.append((len(grid) * seeds,
+                      modules["K3"].KERNEL.launches - before))
         return out
 
     at = 350
@@ -3095,7 +3098,7 @@ def research_13e(modules, root):
     counts = counts_of(modules)
     check(calls == [(256, 700), (192, 700)]
           and counts == {"K1": 0, "K2": 0, "K3": 1400}
-          and all(cuda_move.launch_config(torch.float32, B)[0] > 1
+          and all(cuda_move.KERNEL.launch_config(torch.float32, B)[0] > 1
                   for B, _ in calls)
           and res["CYCLE"][0].shape == (64, 4)
           and res["THRESH"][0].shape == (48, 4),
@@ -3137,7 +3140,8 @@ def research_13e(modules, root):
               f"{RETURN_MOVE_REGISTERED}")
     print(f"research 13e move_probe: K3 launches {counts['K3']} = 700 at B = "
           f"256 + 700 at B = 192 (a team of "
-          f"{cuda_move.launch_config(torch.float32, 256)[0]} lanes per env), "
+          f"{cuda_move.KERNEL.launch_config(torch.float32, 256)[0]} lanes "
+          "per env), "
           f"{seconds:.1f} s ({1e3 * seconds / 1400:.2f} ms per step by the "
           "host clock)")
     hold_on_path(modules, "K3", f"13e CYCLE step {at + 1}", kept)
@@ -3268,9 +3272,10 @@ def main():
     with torch.inference_mode():
         # ---- 3a. K1 vs its plain version, B = 257 (the team of 32), then
         # at a ragged batch above its crossover (one lane per env)
-        states3 = check_states(cuda_move.crossover(), cuda_step.crossover())
-        k1_teams = {B: cuda_step.launch_config(torch.float32, B)[0]
-                    for B in (CHECK_B, cuda_step.crossover() + 61)}
+        (x3,), (x1,) = (modules[k].KERNEL.crossovers() for k in ("K3", "K1"))
+        states3 = check_states(x3, x1)
+        k1_teams = {B: modules["K1"].KERNEL.launch_config(torch.float32, B)[0]
+                    for B in (CHECK_B, x1 + 61)}
         check(len(set(k1_teams.values())) == 2,
               f"K1's checks must reach both instantiations: {k1_teams}")
         cases = [(torch.float64, "Env01 exact", rc.ENV01_PARAMS),
@@ -3354,7 +3359,7 @@ def main():
         cases = [(torch.float64, "EnvMove05 exact", MOVE05_PARAMS),
                  (torch.float64, "EnvMove05 fast", move_fast),
                  (torch.float32, "EnvMove05 fast", move_fast)]
-        teams = {B: cuda_move.launch_config(torch.float32, B)[0]
+        teams = {B: modules["K3"].KERNEL.launch_config(torch.float32, B)[0]
                  for B in states3["K3"]}
         check(len(set(teams.values())) == 2,
               f"K3's checks must reach both instantiations: {teams}")
@@ -3462,7 +3467,7 @@ def main():
         steps03 = opts.serve03_steps
         full = steps03 >= SERVE03_STEPS
         n03 = SERVE03_DRAWS * SERVE03_EPISODES
-        before = cuda_block.launches
+        before = cuda_block.KERNEL.launches
         ev = ChunkedEvaluator(brt.make("Env03-v2", seed=SERVE03_SEED), act)
         t0 = time.perf_counter()
         rets03, lens03 = ev.evaluate_detail(policy03, n03, steps03)
@@ -3476,7 +3481,8 @@ def main():
               f"episodes (models/Env03-v2_r2i, exact solver, one batch of "
               f"{n03}), {'full horizon' if full else 'depth cut to'} "
               f"{steps03} steps, in {serve03_s:.1f} s with "
-              f"{cuda_block.launches - before} K2 launches: survival pooled "
+              f"{cuda_block.KERNEL.launches - before} K2 launches: survival "
+              "pooled "
               f"{pooled:.4f}, draws {draws}, mean return "
               f"{rets03.mean():.2f}, mean length {lens03.mean():.1f}")
         if full:
@@ -3500,7 +3506,7 @@ def main():
             if grade == "fast":
                 move_env.use_fast_solver()
             horizon = move_env.max_episode_steps
-            before = cuda_move.launches
+            before = cuda_move.KERNEL.launches
             t0 = time.perf_counter()
             rets_m, lens_m = ChunkedEvaluator(move_env, act).evaluate_detail(
                 policy_move, n_move)
@@ -3515,7 +3521,8 @@ def main():
                   f"EnvMove05-v1 episodes (models/EnvMove05-v1_PPO_r4, "
                   f"{grade} solver, int8 inner policy, one batch of "
                   f"{n_move}), full horizon {horizon} steps, in "
-                  f"{seconds:.1f} s with {cuda_move.launches - before} K3 "
+                  f"{seconds:.1f} s with "
+                  f"{cuda_move.KERNEL.launches - before} K3 "
                   f"launches: survival pooled {alive.mean():.4f}, draws "
                   f"{[float(x.mean()) for x in np.split(alive, 2)]}, mean "
                   f"return pooled {mean_ret:.2f} (s.e. {se:.2f}), draws "
@@ -3537,7 +3544,7 @@ def main():
 
         cal = brt.make("Cal01").use_fast_solver()
         s, o = cal.reset(SERVE_EPISODES)
-        before = cuda_step.launches
+        before = cuda_step.KERNEL.launches
         for i in range(3):
             s, o, _, _, _ = cal.step(s, o.new_zeros((SERVE_EPISODES, 2)))
             t_cal, vel_l, vel_r = cal.telemetry(s)
@@ -3545,7 +3552,7 @@ def main():
                   f"Cal01 wheels did not spin up: {vel_l.min().item()}, "
                   f"{vel_r.min().item()} after {i + 1} steps")
         check(torch.isfinite(o).all().item()
-              and cuda_step.launches == before + 3,
+              and cuda_step.KERNEL.launches == before + 3,
               "Cal01 obs not finite, or K1 not launched once per step")
         print(f"serving: Cal01 3 steps ok: t = {t_cal[0].item():.3f} s, "
               f"vel_l {vel_l[0].item():.3f}, vel_r {vel_r[0].item():.3f}")
@@ -3672,7 +3679,8 @@ def main():
             wall_ms = time_kernel(lambda: cuda_move.control_step_walls_cuda(
                 *tensors, env_move.params))
             print(f"K3 B={B} f32 fast with every env at a wall (a team of "
-                  f"{cuda_move.launch_config(torch.float32, B)[0]} lanes per "
+                  f"{cuda_move.KERNEL.launch_config(torch.float32, B)[0]} "
+                  "lanes per "
                   f"env): median {wall_ms:.3f} ms over {TIMED_LAUNCHES} "
                   f"launches; {wall_ops:.0f} ops/env/control step")
 

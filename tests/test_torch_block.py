@@ -322,7 +322,7 @@ def test_control_step14_plain_matches_jax_through_an_impact(x64):
     seen = {}
     out = cuda_block.control_step14_plain(T(qpos), T(qvel), T(ws), T(ctrl),
                                           tparams(True), contact_counts=seen)
-    assert cuda_block.launches == 0
+    assert cuda_block.KERNEL.launches == 0
     np.testing.assert_allclose(out[0], jq, rtol=0, atol=1e-11)
     np.testing.assert_allclose(out[1], jv, rtol=0, atol=1e-9)
     scale = max(1.0, float(np.abs(jw).max()))

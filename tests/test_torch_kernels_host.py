@@ -28,7 +28,8 @@ import torch
 import chip_smoke
 from balance_robot_tpu_torch.envs.move import MOVE05_PARAMS
 from balance_robot_tpu_torch.physics import block_step as bs
-from balance_robot_tpu_torch.physics import cuda_block, cuda_move, cuda_step
+from balance_robot_tpu_torch.physics import cuda_block, cuda_kernel
+from balance_robot_tpu_torch.physics import cuda_move, cuda_step
 from balance_robot_tpu_torch.physics import fast_solver, kernel_build
 from balance_robot_tpu_torch.physics import robot_core as rc
 from balance_robot_tpu_torch.physics import step as st
@@ -54,7 +55,7 @@ def host_libs(tmp_path_factory):
         subprocess.run([gxx, "-x", "c++", "-std=c++17", "-O2", "-shared",
                         "-fPIC", "-DBRT_CHECK_ROWS", "-o", str(so),
                         str(kernel_build.CSRC / mod.SOURCE)], check=True)
-        libs[mod.LABEL] = mod._bind(so)
+        libs[mod.LABEL] = mod.KERNEL.bind(so)
     return libs
 
 
@@ -238,165 +239,119 @@ def test_k3_host_build_matches_plain(host_libs, fast):
     assert all(torch.equal(a, b) for a, b in zip(lane, team))
 
 
-def test_k3_wrapper_launches_the_instantiation_the_header_names(
-        host_libs, monkeypatch):
-    """The K3 wrapper hands the launch the team that the library's
-    k3_launch_config gives for the batch: the `.cu` header's small-batch
-    team below its crossover, one lane per env from the crossover on;
-    `launches_by_team` counts each launch under its team."""
-    lib = host_libs["k3"]
-    header = (kernel_build.CSRC / cuda_move.SOURCE).read_text()
-    team = int(re.search(r"#define BRT_K3_TEAM (\d+)", header).group(1))
-    X = cuda_move.crossover(lib)
-    assert f"#define BRT_K3_CROSSOVER {X}\n" in header and team > 1
-    batches = (1, X - 1, X, 4096)
-    launched = []
-
-    class Lib:
-        """The host library, with a launch that records its team."""
-        def __getattr__(self, name):
-            return getattr(lib, name)
-
-        def k3_control_step_f32(self, *args):
-            launched.append(args[-2])
-            return 0
-
-    monkeypatch.setattr(cuda_move, "_lib", Lib())
-    monkeypatch.setattr(cuda_move, "launches", 0)
-    monkeypatch.setattr(cuda_move, "launches_by_team", {})
-    monkeypatch.setattr(cuda_step, "check_kernel_args", lambda *a: None)
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda: types.SimpleNamespace(cuda_stream=0))
-    for B in batches:
-        cuda_move.control_step_walls_cuda(
-            *(torch.zeros(B, n) for n in (9, 8, 8, 2)), MOVE05_PARAMS)
-    assert launched == [cuda_move.launch_config(torch.float32, B, lib)[0]
-                        for B in batches] == [team, team, 1, 1]
-    assert cuda_move.launches == len(batches)
-    assert cuda_move.launches_by_team == {team: 2, 1: 2}
-    # the team keeps the env's 272 rows (13 columns of 273, 44 Hessian and
-    # gradient entries) in shared memory; one lane keeps them in its own
-    # local array
-    size = 13 * 273 + 44
-    for dtype, nbytes in ((torch.float32, 4), (torch.float64, 8)):
-        assert cuda_move.launch_config(dtype, 1, lib) == (
-            team, 32 // team, 32 // team * size * nbytes)
-        assert cuda_move.launch_config(dtype, X, lib) == (1, 32, 0)
+# Each kernel's wrapper: its launch, the widths of its state and ctrl, the
+# scene arguments after them, its rungs from the smallest batch up as (team,
+# first batch), each a `.cu` header macro (BRT_<kernel>_<name>) or a value,
+# the values per env of its team's row store (13 columns of 65 rows for
+# K1, 19 of 121 for K2, 13 of 273 for K3, then the Hessian's and the
+# gradient's entries), the bounds (lo, hi] of its crossovers, and the C
+# entries of its host build.
+WRAPPERS = {
+    "K1": (cuda_step, "control_step_cuda", (9, 8, 8, 2),
+           (None, rc.ENV01_PARAMS), (("TEAM", 1), (1, "CROSSOVER")),
+           13 * 65 + 44, ((1024, 4096),),
+           {"k1_crossover", "k1_launch_config", "k1_count_ops",
+            "k1_count_ops_team_rows"}),
+    "K2": (cuda_block, "control_step14_cuda", (16, 14, 14, 2),
+           (bs.ENV03_PARAMS,),
+           (("TEAM", 1), ("MID_TEAM", "MID"), (8, "CROSSOVER")),
+           19 * 121 + 119, ((1, 1023), (1024, 1792)),
+           {"k2_crossover", "k2_mid_crossover", "k2_launch_config",
+            "k2_count_ops"}),
+    "K3": (cuda_move, "control_step_walls_cuda", (9, 8, 8, 2),
+           (MOVE05_PARAMS,), (("TEAM", 1), (1, "CROSSOVER")),
+           13 * 273 + 44, ((512, 4096),),
+           {"k3_crossover", "k3_launch_config", "k3_count_ops",
+            "k3_count_ops_team_rows", "k3_max_walls"}),
+}
 
 
-def test_k1_wrapper_launches_the_instantiation_the_header_names(
-        host_libs, monkeypatch):
-    """The K1 wrapper hands the launch the team that the library's
-    k1_launch_config gives for the batch: the `.cu` header's small-batch
-    team below its crossover, one lane per env from the crossover on;
-    `launches_by_team` counts each launch under its team. The crossover
+def header_rungs(kernel):
+    """[(team, first batch)] of `kernel`'s rungs, as its `.cu` header's
+    macros give them."""
+    mod, *_, rungs = WRAPPERS[kernel][:5]
+    text = (kernel_build.CSRC / mod.SOURCE).read_text()
+    macros = {name: int(v) for name, v in re.findall(
+        rf"#define BRT_{kernel}_(\w+) (\d+)\n", text)}
+    return [tuple(macros[x] if isinstance(x, str) else x for x in rung)
+            for rung in rungs]
+
+
+@pytest.mark.parametrize("kernel", sorted(WRAPPERS))
+def test_host_build_exports_the_c_interface_and_the_header_rungs(
+        host_libs, kernel):
+    """Each host build exports the same C entries as before the kernels
+    shared their launch code (the launches are nvcc's only), and its
+    crossovers, read from those entries, are the header's."""
+    mod, *_, bounds, entries = WRAPPERS[kernel]
+    so = host_libs[mod.LABEL]._name
+    nm = shutil.which("nm")
+    if nm is None:
+        pytest.skip("no nm on this host to list the library's exports")
+    listed = subprocess.run([nm, "-D", "--defined-only", so], check=True,
+                            capture_output=True, text=True).stdout.split()
+    assert {n for n in listed if re.fullmatch(r"k\d_\w+", n)} == entries
+    rungs = header_rungs(kernel)
+    crossovers = mod.KERNEL.crossovers(host_libs[mod.LABEL])
+    assert crossovers == [first for _, first in rungs[1:]]
+    assert all(lo < x <= hi for x, (lo, hi) in zip(crossovers, bounds))
+
+
+@pytest.mark.parametrize("kernel", sorted(WRAPPERS))
+def test_wrapper_launches_the_instantiation_the_header_names(
+        host_libs, monkeypatch, kernel):
+    """A wrapper hands the launch the team that the library's
+    k*_launch_config gives for the batch: the `.cu` header's small-batch
+    team below its first crossover, and each later rung's team from its
+    crossover on (K1 and K3 one lane per env, K2 its middle team and then
+    its team of 8); the kernel's `launches_by_team` counts each launch
+    under its team. The team keeps an env's rows in its slice of the
+    block's shared memory, one lane in its own local array. K1's crossover
     lies above the CLI's training batch of 1,024 envs, so that the sharded
     runs (2 x 512, 4 x 256) take the instantiation of one process at
     1,024."""
-    lib = host_libs["k1"]
-    header = (kernel_build.CSRC / cuda_step.SOURCE).read_text()
-    team = int(re.search(r"#define BRT_K1_TEAM (\d+)", header).group(1))
-    X = cuda_step.crossover(lib)
-    assert f"#define BRT_K1_CROSSOVER {X}\n" in header and team == 32
-    assert 1024 < X <= 4096
-    batches = (1, 1024, X - 1, X, 4096)
+    mod, launch, widths, scene, _, size, _, _ = WRAPPERS[kernel]
+    lib = host_libs[mod.LABEL]
+    rungs = header_rungs(kernel)
+    assert [team for team, _ in rungs] == {
+        "K1": [32, 1], "K2": [32, 16, 8], "K3": [32, 1]}[kernel]
+    batches = sorted({1, 1024, 4096} | {b + d for _, b in rungs[1:]
+                                        for d in (-1, 0)})
+    teams = [[g for g, first in rungs if first <= B][-1] for B in batches]
     launched = []
+
+    def record(*args):
+        launched.append(args[-2])
+        return 0
 
     class Lib:
         """The host library, with a launch that records its team."""
         def __getattr__(self, name):
+            if name == f"{mod.LABEL}_control_step_f32":
+                return record
             return getattr(lib, name)
 
-        def k1_control_step_f32(self, *args):
-            launched.append(args[-2])
-            return 0
-
-    monkeypatch.setattr(cuda_step, "_lib", Lib())
-    monkeypatch.setattr(cuda_step, "launches", 0)
-    monkeypatch.setattr(cuda_step, "launches_by_team", {})
-    monkeypatch.setattr(cuda_step, "check_kernel_args", lambda *a: None)
+    monkeypatch.setattr(mod.KERNEL, "lib", Lib())
+    monkeypatch.setattr(mod.KERNEL, "launches", 0)
+    monkeypatch.setattr(mod.KERNEL, "launches_by_team", {})
+    monkeypatch.setattr(cuda_kernel, "check_kernel_args", lambda *a: None)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: types.SimpleNamespace(cuda_stream=0))
     for B in batches:
-        cuda_step.control_step_cuda(
-            *(torch.zeros(B, n) for n in (9, 8, 8, 2)), None,
-            rc.ENV01_PARAMS)
-    assert launched == [cuda_step.launch_config(torch.float32, B, lib)[0]
-                        for B in batches] == [team, team, team, 1, 1]
-    assert cuda_step.launches == len(batches)
-    assert cuda_step.launches_by_team == {team: 3, 1: 2}
-    # the team keeps the env's 64 rows (13 columns of 65, 44 Hessian and
-    # gradient entries) in shared memory, one env per one-warp block; one
-    # lane keeps them in its own local array
-    size = 13 * 65 + 44
+        getattr(mod, launch)(*(torch.zeros(B, n) for n in widths), *scene)
+    assert launched == [mod.KERNEL.launch_config(torch.float32, B, lib)[0]
+                        for B in batches] == teams
+    assert mod.KERNEL.launches == len(batches)
+    assert mod.KERNEL.launches_by_team == {g: teams.count(g) for g in teams}
     for dtype, nbytes in ((torch.float32, 4), (torch.float64, 8)):
-        assert cuda_step.launch_config(dtype, 1, lib) == (
-            team, 32 // team, 32 // team * size * nbytes)
-        assert cuda_step.launch_config(dtype, X, lib) == (1, 32, 0)
-    assert cuda_step.launch_config(torch.float32, 1, lib)[2] == 3556
-
-
-def test_k2_wrapper_launches_the_instantiation_the_header_names(
-        host_libs, monkeypatch):
-    """The K2 wrapper hands the launch the team that the library's
-    k2_launch_config gives for the batch: the `.cu` header's small-batch
-    team below its first crossover, its middle team from there to the
-    second, the main path's team of 8 from the second on;
-    `launches_by_team` counts each launch under its team."""
-    lib = host_libs["k2"]
-    header = (kernel_build.CSRC / cuda_block.SOURCE).read_text()
-
-    def macro(name):
-        return int(re.search(rf"#define {name} (\d+)\n", header).group(1))
-
-    team, mid_team = macro("BRT_K2_TEAM"), macro("BRT_K2_MID_TEAM")
-    M, X = cuda_block.mid_crossover(lib), cuda_block.crossover(lib)
-    assert (team, mid_team) == (32, 16)
-    assert (macro("BRT_K2_MID"), macro("BRT_K2_CROSSOVER")) == (M, X)
-    assert 1 < M < 1024 < X <= 1792
-    batches = (1, M - 1, M, X - 1, X, 4096)
-    launched = []
-
-    class Lib:
-        """The host library, with a launch that records its team."""
-        def __getattr__(self, name):
-            return getattr(lib, name)
-
-        def k2_control_step_f32(self, *args):
-            launched.append(args[-2])
-            return 0
-
-    monkeypatch.setattr(cuda_block, "_lib", Lib())
-    monkeypatch.setattr(cuda_block, "launches", 0)
-    monkeypatch.setattr(cuda_block, "launches_by_team", {})
-    monkeypatch.setattr(cuda_step, "check_kernel_args", lambda *a: None)
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda: types.SimpleNamespace(cuda_stream=0))
-    for B in batches:
-        cuda_block.control_step14_cuda(
-            *(torch.zeros(B, n) for n in (16, 14, 14, 2)), bs.ENV03_PARAMS)
-    assert launched == [cuda_block.launch_config(torch.float32, B, lib)[0]
-                        for B in batches] == [team, team, mid_team,
-                                              mid_team, 8, 8]
-    assert cuda_block.launches == len(batches)
-    assert cuda_block.launches_by_team == {team: 2, mid_team: 2, 8: 2}
-    # each env keeps its 120 rows (19 columns of 121, 119 Hessian and
-    # gradient entries) in its slice of the block's shared memory: one env
-    # per one-warp block for the team of 32, 2 for the team of 16, 4 for
-    # the team of 8
-    size = 19 * 121 + 119
-    for dtype, nbytes in ((torch.float32, 4), (torch.float64, 8)):
-        for B, lanes in ((1, team), (M, mid_team), (X, 8)):
-            assert cuda_block.launch_config(dtype, B, lib) == (
-                lanes, 32 // lanes, 32 // lanes * size * nbytes)
-    assert cuda_block.launch_config(torch.float32, 1, lib)[2] == 9672
-    assert cuda_block.launch_config(torch.float64, 1, lib)[2] == 19344
+        for team, first in rungs:
+            assert mod.KERNEL.launch_config(dtype, first, lib) == (
+                team, 32 // team,
+                0 if team == 1 else 32 // team * size * nbytes)
+    assert mod.KERNEL.launch_config(torch.float32, 1, lib)[2] == {
+        "K1": 3556, "K2": 9672, "K3": 14372}[kernel]
 
 
 def test_a_header_edit_changes_both_kernels_hashes(tmp_path, monkeypatch):

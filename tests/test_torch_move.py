@@ -345,7 +345,7 @@ def closed_loop_rollout(tmp_path, B, T):
     subprocess.run([gxx, "-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC",
                     "-o", str(so), str(kernel_build.CSRC / cuda_move.SOURCE)],
                    check=True)
-    lib = cuda_move._bind(so)
+    lib = cuda_move.KERNEL.bind(so)
     d = checkpoint.load(POLICY)
     jd = {k: jnp.asarray(v, jnp.float32) for k, v in d.items()}
     net = mlp.from_numpy_params(d, dtype=torch.float32)

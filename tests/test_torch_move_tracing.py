@@ -7,7 +7,7 @@ nothing and gives the same outputs. The physics is a cheap fake here (the
 plain wall step would record every op of 250 substeps under a CPU
 profiler); the lidar reward and the int8 inner policy are the port's own.
 On the card (marked `cuda`), K3's launches are counted under the team that
-`launch_config` chose for the batch.
+`KERNEL.launch_config` chose for the batch.
 """
 
 import pytest
@@ -71,8 +71,8 @@ def test_k3_launches_are_counted_by_team_on_the_card(monkeypatch):
     crossover (one lane per env), float32, a short step each."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (and nvcc to build K3)")
-    monkeypatch.setattr(cuda_move, "launches_by_team", {})
-    X = cuda_move.crossover()
+    monkeypatch.setattr(cuda_move.KERNEL, "launches_by_team", {})
+    X, = cuda_move.KERNEL.crossovers()
     teams = []
     for B in (1, X, X):
         qpos = torch.zeros(B, 9, device="cuda")
@@ -82,7 +82,7 @@ def test_k3_launches_are_counted_by_team_on_the_card(monkeypatch):
         cuda_move.control_step_walls(qpos, zeros, zeros.clone(),
                                      torch.zeros(B, 2, device="cuda"),
                                      move.MOVE05_PARAMS, frame_skip=5)
-        teams.append(cuda_move.launch_config(torch.float32, B)[0])
+        teams.append(cuda_move.KERNEL.launch_config(torch.float32, B)[0])
     torch.cuda.synchronize()
     assert teams[0] > 1 and teams[1] == 1
-    assert cuda_move.launches_by_team == {teams[0]: 1, 1: 2}
+    assert cuda_move.KERNEL.launches_by_team == {teams[0]: 1, 1: 2}

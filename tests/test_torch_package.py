@@ -22,7 +22,8 @@ from balance_robot_tpu_torch.envs.vector import VecEnv
 from balance_robot_tpu_torch.envs.move import MOVE05_PARAMS
 from balance_robot_tpu_torch.models import mlp
 from balance_robot_tpu_torch.physics import block_step as bs
-from balance_robot_tpu_torch.physics import cuda_block, cuda_move, cuda_step
+from balance_robot_tpu_torch.physics import cuda_block, cuda_kernel
+from balance_robot_tpu_torch.physics import cuda_move, cuda_step
 from balance_robot_tpu_torch.physics import fast_solver
 from balance_robot_tpu_torch.physics import robot_core as rc
 from balance_robot_tpu_torch.train import checkpoint
@@ -94,43 +95,6 @@ def test_chip_smoke_fails_without_a_gpu_or_without_the_repo(tmp_path):
         assert '"ok": true' not in res.stdout
 
 
-def test_cpu_tensors_take_the_plain_version(monkeypatch):
-    def refuse(*args, **kwargs):
-        raise AssertionError("K1 launched for CPU tensors")
-
-    monkeypatch.setattr(cuda_step, "control_step_cuda", refuse)
-    monkeypatch.setattr(cuda_step, "launches", 0)
-    B = 3
-    qpos = torch.zeros(B, 9, dtype=torch.float64)
-    qpos[:, 3] = 1.0
-    qpos[:, 2] = -0.021
-    qvel = torch.zeros(B, 8, dtype=torch.float64)
-    ctrl = torch.ones(B, 2, dtype=torch.float64)
-    out = cuda_step.control_step(qpos, qvel, qvel, ctrl, None,
-                                 rc.ENV01_PARAMS, frame_skip=2)
-    ref = cuda_step.control_step_plain(qpos, qvel, qvel, ctrl, None,
-                                       rc.ENV01_PARAMS, frame_skip=2)
-    assert cuda_step.launches == 0
-    for a, b in zip(out, ref):
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
-
-
-def test_cpu_tensors_take_the_plain_version_k2(monkeypatch):
-    def refuse(*args, **kwargs):
-        raise AssertionError("K2 launched for CPU tensors")
-
-    monkeypatch.setattr(cuda_block, "control_step14_cuda", refuse)
-    monkeypatch.setattr(cuda_block, "launches", 0)
-    qpos, qvel, ctrl = block_states(6)
-    out = cuda_block.control_step14(qpos, qvel, qvel, ctrl, bs.ENV03_PARAMS,
-                                    frame_skip=2)
-    ref = cuda_block.control_step14_plain(qpos, qvel, qvel, ctrl,
-                                          bs.ENV03_PARAMS, frame_skip=2)
-    assert cuda_block.launches == 0
-    for a, b in zip(out, ref):
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
-
-
 def wall_states(B, seed=0):
     """chip_smoke.py's robot states in every wall-contact regime, as float64
     CPU tensors qpos (B,9), qvel (B,8), ctrl (B,2)."""
@@ -140,33 +104,68 @@ def wall_states(B, seed=0):
         np.random.default_rng(seed), B))
 
 
-def test_cpu_tensors_take_the_plain_version_k3(monkeypatch):
-    """Both the K3 wrapper and the envs' entry `cuda_step.control_step`
-    send a wall scene on CPU tensors to the plain wall physics."""
+# each kernel's wrapper, its launch, the widths of its state and ctrl, and
+# the scene arguments after them
+KERNELS = {"K1": (cuda_step, "control_step_cuda", (9, 8, 8, 2),
+                  (None, rc.ENV01_PARAMS)),
+           "K2": (cuda_block, "control_step14_cuda", (16, 14, 14, 2),
+                  (bs.ENV03_PARAMS,)),
+           "K3": (cuda_move, "control_step_walls_cuda", (9, 8, 8, 2),
+                  (MOVE05_PARAMS,))}
+
+
+def cpu_case(kernel):
+    """(the entries that take CPU tensors to `kernel`'s plain version, that
+    version, their arguments) on float64 states of the kernel's scene: K1 on
+    the floor, K2 and K3 in every contact regime of theirs."""
+    if kernel == "K1":
+        qpos = torch.zeros(3, 9, dtype=torch.float64)
+        qpos[:, 3] = 1.0
+        qpos[:, 2] = -0.021
+        qvel = torch.zeros(3, 8, dtype=torch.float64)
+        return ([cuda_step.control_step], cuda_step.control_step_plain,
+                (qpos, qvel, qvel, torch.ones(3, 2, dtype=torch.float64),
+                 None, rc.ENV01_PARAMS))
+    if kernel == "K2":
+        qpos, qvel, ctrl = block_states(6)
+        return ([cuda_block.control_step14], cuda_block.control_step14_plain,
+                (qpos, qvel, qvel, ctrl, bs.ENV03_PARAMS))
+    qpos, qvel, ctrl = wall_states(6)
+    # the envs' entry sends a wall scene to K3's wrapper
+    return ([cuda_move.control_step_walls,
+             lambda *a, **k: cuda_step.control_step(*a[:4], None, *a[4:],
+                                                    **k)],
+            cuda_move.control_step_walls_plain,
+            (qpos, qvel, torch.zeros_like(qvel), ctrl, MOVE05_PARAMS))
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+def test_cpu_tensors_take_the_plain_version(monkeypatch, kernel):
+    """CPU tensors take the kernel's plain version through its wrapper (and,
+    for a wall scene, through the envs' entry `cuda_step.control_step`),
+    bit for bit, and launch no kernel."""
     def refuse(*args, **kwargs):
         raise AssertionError("a kernel launched for CPU tensors")
 
-    monkeypatch.setattr(cuda_move, "control_step_walls_cuda", refuse)
-    monkeypatch.setattr(cuda_step, "control_step_cuda", refuse)
-    monkeypatch.setattr(cuda_move, "launches", 0)
-    qpos, qvel, ctrl = wall_states(6)
-    ws = torch.zeros_like(qvel)
-    seen = {}
-    ref = cuda_move.control_step_walls_plain(qpos, qvel, ws, ctrl,
-                                             MOVE05_PARAMS, frame_skip=2,
-                                             contact_counts=seen)
-    assert sum(int(v.sum()) for v in seen.values()) > 0
-    for out in (cuda_move.control_step_walls(qpos, qvel, ws, ctrl,
-                                             MOVE05_PARAMS, frame_skip=2),
-                cuda_step.control_step(qpos, qvel, ws, ctrl, None,
-                                       MOVE05_PARAMS, frame_skip=2)):
-        for a, b in zip(out, ref):
+    for mod, launch, _, _ in KERNELS.values():
+        monkeypatch.setattr(mod, launch, refuse)
+        monkeypatch.setattr(mod.KERNEL, "launches", 0)
+    entries, plain, args = cpu_case(kernel)
+    ref = plain(*args, frame_skip=2)
+    for entry in entries:
+        for a, b in zip(entry(*args, frame_skip=2), ref):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
-    assert cuda_move.launches == 0
-    # the walls matter: the flat-floor scene moves these states elsewhere
-    flat = cuda_step.control_step(qpos, qvel, ws, ctrl, None,
-                                  rc.ENV01_PARAMS, frame_skip=2)
-    assert not torch.equal(flat[1], ref[1])
+    assert all(m.KERNEL.launches == 0 for m, *_ in KERNELS.values())
+    params = args[-1]
+    if params.walls:
+        # the walls matter: the states touch them, and the flat-floor scene
+        # moves them elsewhere
+        seen = {}
+        plain(*args, frame_skip=2, contact_counts=seen)
+        assert sum(int(v.sum()) for v in seen.values()) > 0
+        flat = cuda_step.control_step(*args[:4], None, rc.ENV01_PARAMS,
+                                      frame_skip=2)
+        assert not torch.equal(flat[1], ref[1])
 
 
 class FakeCudaTensor:
@@ -196,38 +195,6 @@ def test_a_wall_scene_on_cuda_tensors_goes_to_k3(monkeypatch):
     assert calls == ["K3", "K1", "K3"]
 
 
-def test_k3_wrapper_refuses_what_the_kernel_does_not_take():
-    cpu = [torch.zeros(2, 9), torch.zeros(2, 8), torch.zeros(2, 8),
-           torch.zeros(2, 2)]
-    with pytest.raises(ValueError, match="K3.*CUDA"):
-        cuda_move.control_step_walls_cuda(*cpu, MOVE05_PARAMS)
-
-    def args(**replaced):
-        shapes = dict(qpos=(2, 9), qvel=(2, 8), ws=(2, 8), ctrl=(2, 2))
-        out = {k: FakeCudaTensor(*v) for k, v in shapes.items()}
-        out.update(replaced)
-        return list(out.values())
-
-    for bad, match in (
-            (dict(qvel=FakeCudaTensor(2, 14)), "K3: qvel must have shape"),
-            (dict(ctrl=FakeCudaTensor(3, 2)), "K3: ctrl must have shape"),
-            (dict(ws=FakeCudaTensor(2, 8, dtype=torch.float64)),
-             "K3: ws must be float32 or float64 like qpos"),
-            (dict(qpos=FakeCudaTensor(2, 9, dtype=torch.float16)),
-             "K3: qpos must be float32 or float64"),
-            (dict(qvel=FakeCudaTensor(2, 8, contiguous=False)),
-             "K3: qvel must be contiguous")):
-        with pytest.raises(ValueError, match=match):
-            cuda_move.control_step_walls_cuda(*args(**bad), MOVE05_PARAMS)
-    five = rc.RobotSceneParams(walls=MOVE05_PARAMS.walls
-                               + (MOVE05_PARAMS.walls[0],))
-    with pytest.raises(ValueError, match="at most 4 walls"):
-        cuda_move.control_step_walls_cuda(*args(), five)
-    with pytest.raises(ValueError, match="K1 has no wall contacts"):
-        cuda_step.control_step_cuda(*args(), None, MOVE05_PARAMS)
-    assert cuda_move.launches == 0 and cuda_step.launches == 0
-
-
 def test_move05_checkpoint_loads_at_its_own_width():
     """The outer policy the repo ships for EnvMove05-v1: 10-64-64-2."""
     net = mlp.from_numpy_params(checkpoint.load(
@@ -241,17 +208,46 @@ def test_move05_checkpoint_loads_at_its_own_width():
     assert net.policy_mean(obs).shape == (5, 2)
 
 
-def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
-    x = torch.zeros(2, 9)
-    with pytest.raises(ValueError, match="CUDA"):
-        cuda_step.control_step_cuda(x, torch.zeros(2, 8), torch.zeros(2, 8),
-                                    torch.zeros(2, 2), None, rc.ENV01_PARAMS)
-    assert cuda_step.launches == 0
-    with pytest.raises(ValueError, match="K2.*CUDA"):
-        cuda_block.control_step14_cuda(
-            torch.zeros(2, 16), torch.zeros(2, 14), torch.zeros(2, 14),
-            torch.zeros(2, 2), bs.ENV03_PARAMS)
-    assert cuda_block.launches == 0
+# what each kernel's wrapper refuses of a scene: (scene arguments, error)
+REFUSED_SCENES = {
+    "K1": [((None, MOVE05_PARAMS), "K1 has no wall contacts")],
+    "K2": [],
+    "K3": [((rc.RobotSceneParams(walls=MOVE05_PARAMS.walls
+                                 + (MOVE05_PARAMS.walls[0],)),),
+            "at most 4 walls")]}
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch,
+                                                              kernel):
+    mod, launch, widths, scene = KERNELS[kernel]
+    launch = getattr(mod, launch)
+    monkeypatch.setattr(mod.KERNEL, "launches", 0)
+    with pytest.raises(ValueError, match=f"{kernel}: qpos must be on .*CUDA"):
+        launch(*(torch.zeros(2, n) for n in widths), *scene)
+
+    def args(**replaced):
+        out = {k: FakeCudaTensor(2, n)
+               for k, n in zip(("qpos", "qvel", "ws", "ctrl"), widths)}
+        out.update(replaced)
+        return list(out.values())
+
+    nq, nv = widths[:2]
+    for bad, match in (
+            (dict(qvel=FakeCudaTensor(2, nv + 6)), "qvel must have shape"),
+            (dict(ctrl=FakeCudaTensor(3, 2)), "ctrl must have shape"),
+            (dict(ws=FakeCudaTensor(2, nv, dtype=torch.float64)),
+             "ws must be float32 or float64 like qpos"),
+            (dict(qpos=FakeCudaTensor(2, nq, dtype=torch.float16)),
+             "qpos must be float32 or float64"),
+            (dict(qvel=FakeCudaTensor(2, nv, contiguous=False)),
+             "qvel must be contiguous")):
+        with pytest.raises(ValueError, match=f"{kernel}: {match}"):
+            launch(*args(**bad), *scene)
+    for refused, match in REFUSED_SCENES[kernel]:
+        with pytest.raises(ValueError, match=match):
+            launch(*args(), *refused)
+    assert mod.KERNEL.launches == 0
 
 
 def test_kernel_module_imports_and_builds_lazily():
@@ -260,14 +256,23 @@ def test_kernel_module_imports_and_builds_lazily():
     code = ("import balance_robot_tpu_torch.physics.cuda_step as m; "
             "import balance_robot_tpu_torch.physics.cuda_block as m2; "
             "import balance_robot_tpu_torch.physics.cuda_move as m3; "
-            "assert m._lib is None and m.launches == 0; "
-            "assert m2._lib is None and m2.launches == 0; "
-            "assert m3._lib is None and m3.launches == 0")
+            "assert m.KERNEL.lib is None and m.KERNEL.launches == 0; "
+            "assert m2.KERNEL.lib is None and m2.KERNEL.launches == 0; "
+            "assert m3.KERNEL.lib is None and m3.KERNEL.launches == 0")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300,
                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert res.returncode == 0, res.stderr
-    p = cuda_step.kernel_params(fast_solver(rc.ENV02_PARAMS))
+    # the wrappers share cuda_kernel; no wrapper imports another at its top
+    # (K1's entry imports K3's when it meets a wall scene)
+    wrappers = {"cuda_step", "cuda_block", "cuda_move"}
+    for name in wrappers:
+        tree = ast.parse((ROOT / "balance_robot_tpu_torch" / "physics"
+                          / f"{name}.py").read_text())
+        assert not wrappers & {a.name for node in tree.body
+                               if isinstance(node, ast.ImportFrom)
+                               for a in node.names}, name
+    p = cuda_kernel.kernel_params(fast_solver(rc.ENV02_PARAMS))
     assert p.timestep == rc.ENV02_PARAMS.timestep
     assert p.wheel.mu1 == 1.0 and p.chassis.invweight == \
         rc.ENV02_PARAMS.chassis_contact.invweight
@@ -300,11 +305,11 @@ def test_k1_matches_plain_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (and nvcc to build K1)")
     g = torch.Generator().manual_seed(0)
-    X = cuda_step.crossover()
-    team = cuda_step.launch_config(torch.float64, 1)[0]
+    X, = cuda_step.KERNEL.crossovers()
+    team = cuda_step.KERNEL.launch_config(torch.float64, 1)[0]
     assert team > 1
     for B in (1, 37, X - 3, X + 5):
-        lanes, envs, _ = cuda_step.launch_config(torch.float64, B)
+        lanes, envs, _ = cuda_step.KERNEL.launch_config(torch.float64, B)
         assert lanes == (team if B < X else 1)
         assert B == 1 or envs == 1 or B % envs
         qpos = torch.zeros(B, 9, dtype=torch.float64)
@@ -318,15 +323,15 @@ def test_k1_matches_plain_on_the_card():
             args = [t.cuda() for t in (qpos, qvel, torch.zeros_like(qvel),
                                        ctrl)]
             fr = fric.cuda() if params.dynamic_friction else None
-            before = cuda_step.launches
+            before = cuda_step.KERNEL.launches
             out = cuda_step.control_step(*args, fr, params, frame_skip=20)
-            assert cuda_step.launches == before + 1
+            assert cuda_step.KERNEL.launches == before + 1
             ref = cuda_step.control_step_plain(*args, fr, params,
                                                frame_skip=20)
             for a, b in zip(out, ref):
                 torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9)
-    print(json.dumps(cuda_step.build_info["resources"]),
-          *(cuda_step.launch_config(dtype, B)
+    print(json.dumps(cuda_step.KERNEL.build_info["resources"]),
+          *(cuda_step.KERNEL.launch_config(dtype, B)
             for dtype in (torch.float32, torch.float64) for B in (1, X)))
 
 
@@ -349,13 +354,13 @@ def test_k2_matches_plain_on_the_card():
     batch."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (and nvcc to build K2)")
-    M, X = cuda_block.mid_crossover(), cuda_block.crossover()
-    team = cuda_block.launch_config(torch.float64, 1)[0]
-    mid_team = cuda_block.launch_config(torch.float64, M)[0]
+    M, X = cuda_block.KERNEL.crossovers()
+    team = cuda_block.KERNEL.launch_config(torch.float64, 1)[0]
+    mid_team = cuda_block.KERNEL.launch_config(torch.float64, M)[0]
     assert team > mid_team > 8
     ragged = set()
     for B in (1, 61, M - 1, M, X - 1, X + 1):
-        cfg = cuda_block.launch_config(torch.float64, B)
+        cfg = cuda_block.KERNEL.launch_config(torch.float64, B)
         assert cfg[0] == (team if B < M else mid_team if B < X else 8)
         if cfg[1] == 1 or B % cfg[1]:
             ragged.add(cfg[0])
@@ -363,11 +368,12 @@ def test_k2_matches_plain_on_the_card():
         for params in (bs.ENV03_PARAMS, fast_solver(bs.ENV03_PARAMS)):
             args = [t.cuda() for t in (qpos, qvel, torch.zeros_like(qvel),
                                        ctrl)]
-            before = cuda_block.launches
-            by_team = cuda_block.launches_by_team.get(cfg[0], 0)
+            before = cuda_block.KERNEL.launches
+            by_team = cuda_block.KERNEL.launches_by_team.get(cfg[0], 0)
             out = cuda_block.control_step14(*args, params, frame_skip=40)
-            assert cuda_block.launches == before + 1
-            assert cuda_block.launches_by_team[cfg[0]] == by_team + 1
+            assert cuda_block.KERNEL.launches == before + 1
+            assert (cuda_block.KERNEL.launches_by_team[cfg[0]]
+                    == by_team + 1)
             seen = {}
             ref = cuda_block.control_step14_plain(*args, params,
                                                   frame_skip=40,
@@ -377,8 +383,9 @@ def test_k2_matches_plain_on_the_card():
             if B > 1:
                 assert all(int(v.sum()) > 0 for v in seen.values()), seen
     assert ragged == {team, mid_team, 8}
-    print(json.dumps(cuda_block.build_info["resources"]),
-          *(cuda_block.launch_config(torch.float32, B) for B in (1, M, X)))
+    print(json.dumps(cuda_block.KERNEL.build_info["resources"]),
+          *(cuda_block.KERNEL.launch_config(torch.float32, B)
+            for B in (1, M, X)))
     qpos, qvel, ctrl = block_states(4096, seed=1)
     args = [t.float().cuda() for t in (qpos, qvel, torch.zeros_like(qvel),
                                        ctrl)]
@@ -397,9 +404,9 @@ def test_k2_bits_do_not_depend_on_the_batch():
     at both grades, on states in every contact regime."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (and nvcc to build K2)")
-    M, X = cuda_block.mid_crossover(), cuda_block.crossover()
+    M, X = cuda_block.KERNEL.crossovers()
     qpos, qvel, ctrl = block_states(X + 61, seed=5)
-    assert [cuda_block.launch_config(torch.float32, B)[0]
+    assert [cuda_block.KERNEL.launch_config(torch.float32, B)[0]
             for B in (61, M + 61, X + 61)] == [32, 16, 8]
     for dtype in (torch.float32, torch.float64):
         args = [t.to("cuda", dtype) for t in (
@@ -429,19 +436,19 @@ def test_k3_matches_plain_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (and nvcc to build K3)")
     from balance_robot_tpu_torch.physics import step as st
-    X = cuda_move.crossover()
-    team = cuda_move.launch_config(torch.float64, 1)[0]
+    X, = cuda_move.KERNEL.crossovers()
+    team = cuda_move.KERNEL.launch_config(torch.float64, 1)[0]
     assert team > 1
     for B in (1, 61, X - 1, X + 1):
-        assert cuda_move.launch_config(torch.float64, B)[0] == (
+        assert cuda_move.KERNEL.launch_config(torch.float64, B)[0] == (
             team if B < X else 1)
         qpos, qvel, ctrl = wall_states(B)
         for params in (MOVE05_PARAMS, fast_solver(MOVE05_PARAMS)):
             args = [t.cuda() for t in (qpos, qvel, torch.zeros_like(qvel),
                                        ctrl)]
-            before = cuda_move.launches
+            before = cuda_move.KERNEL.launches
             out = cuda_step.control_step(*args, None, params, frame_skip=40)
-            assert cuda_move.launches == before + 1
+            assert cuda_move.KERNEL.launches == before + 1
             seen = {}
             ref = cuda_move.control_step_walls_plain(*args, params,
                                                      frame_skip=40,
@@ -451,9 +458,9 @@ def test_k3_matches_plain_on_the_card():
             if B > 1:
                 assert set(seen) == set(st.WALL_CONTACT_KINDS)
                 assert all(int(v.sum()) > 0 for v in seen.values()), seen
-    print(json.dumps(cuda_move.build_info["resources"]),
-          cuda_move.launch_config(torch.float32, 1),
-          cuda_move.launch_config(torch.float32, X))
+    print(json.dumps(cuda_move.KERNEL.build_info["resources"]),
+          cuda_move.KERNEL.launch_config(torch.float32, 1),
+          cuda_move.KERNEL.launch_config(torch.float32, X))
     with pytest.raises(ValueError, match="K3: qvel must have shape"):
         cuda_move.control_step_walls_cuda(args[0], args[0], args[2], args[3],
                                           MOVE05_PARAMS)
@@ -475,6 +482,17 @@ def test_k3_matches_plain_on_the_card():
               [float(d[kind == i].max()) for i in range(6)])
 
 
+def use_checked_build(monkeypatch, mod):
+    """Launch the checked build (-DBRT_CHECK_ROWS) of `mod`'s kernel for the
+    rest of the test; print its ptxas resources."""
+    from balance_robot_tpu_torch.physics import kernel_build
+    info = {}
+    monkeypatch.setattr(mod.KERNEL, "lib", mod.KERNEL.bind(
+        kernel_build.build(f"{mod.LABEL}_checked", mod.SOURCE, info,
+                           defines=("-DBRT_CHECK_ROWS",))))
+    print(json.dumps(info["resources"]))
+
+
 @pytest.mark.cuda
 def test_k3_checked_build_on_the_card(monkeypatch):
     """A checked build of K3 (-DBRT_CHECK_ROWS: every row-store index held
@@ -487,14 +505,9 @@ def test_k3_checked_build_on_the_card(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (and nvcc to build K3)")
     import chip_smoke
-    from balance_robot_tpu_torch.physics import kernel_build
     from balance_robot_tpu_torch.physics import step as st
-    info = {}
-    monkeypatch.setattr(cuda_move, "_lib", cuda_move._bind(kernel_build.build(
-        "k3_checked", cuda_move.SOURCE, info,
-        defines=("-DBRT_CHECK_ROWS",))))
-    print(json.dumps(info["resources"]))
-    X = cuda_move.crossover()
+    use_checked_build(monkeypatch, cuda_move)
+    X, = cuda_move.KERNEL.crossovers()
     for B in (512, X + 61):
         qpos, qvel, ctrl = wall_states(B, seed=2)
         for dtype in (torch.float32, torch.float64):
@@ -545,14 +558,9 @@ def test_k1_checked_build_on_the_card(monkeypatch):
         pytest.skip("needs an NVIDIA GPU (and nvcc to build K1)")
     import numpy as np
     import chip_smoke
-    from balance_robot_tpu_torch.physics import kernel_build
-    info = {}
-    monkeypatch.setattr(cuda_step, "_lib", cuda_step._bind(kernel_build.build(
-        "k1_checked", cuda_step.SOURCE, info,
-        defines=("-DBRT_CHECK_ROWS",))))
-    print(json.dumps(info["resources"]))
-    X = cuda_step.crossover()
-    assert [cuda_step.launch_config(torch.float32, B)[0]
+    use_checked_build(monkeypatch, cuda_step)
+    X, = cuda_step.KERNEL.crossovers()
+    assert [cuda_step.KERNEL.launch_config(torch.float32, B)[0]
             for B in (256, 1031, X + 61)] == [32, 32, 1]
     for B in (256, 1031, X + 61):
         qpos, qvel, ws, ctrl, fric = chip_smoke.random_states_np(
@@ -584,14 +592,9 @@ def test_k2_checked_build_on_the_card(monkeypatch):
         pytest.skip("needs an NVIDIA GPU (and nvcc to build K2)")
     import numpy as np
     import chip_smoke
-    from balance_robot_tpu_torch.physics import kernel_build
-    info = {}
-    monkeypatch.setattr(cuda_block, "_lib", cuda_block._bind(
-        kernel_build.build("k2_checked", cuda_block.SOURCE, info,
-                           defines=("-DBRT_CHECK_ROWS",))))
-    print(json.dumps(info["resources"]))
-    X = cuda_block.crossover()
-    assert [cuda_block.launch_config(torch.float32, B)[0]
+    use_checked_build(monkeypatch, cuda_block)
+    _, X = cuda_block.KERNEL.crossovers()
+    assert [cuda_block.KERNEL.launch_config(torch.float32, B)[0]
             for B in (512, 1024, X + 61)] == [32, 16, 8]
     for B in (512, 1024, X + 61):
         qpos, qvel, ctrl = chip_smoke.random_states14(

@@ -130,11 +130,12 @@ def test_counters_and_clear(store):
 
 def test_the_kernels_load_and_first_launch_are_set_up_spans(store,
                                                             monkeypatch):
-    monkeypatch.setattr(cuda_step, "_lib", None)
+    monkeypatch.setattr(cuda_step.KERNEL, "lib", None)
     monkeypatch.setattr(kernel_build, "build", lambda *a: "lib.so")
-    monkeypatch.setattr(cuda_step, "_bind", lambda path: f"bound {path}")
-    assert cuda_step.build() == "bound lib.so"
-    assert cuda_step.build() == "bound lib.so"
+    monkeypatch.setattr(cuda_step.KERNEL, "bind",
+                        lambda path: f"bound {path}")
+    assert cuda_step.KERNEL.build() == "bound lib.so"
+    assert cuda_step.KERNEL.build() == "bound lib.so"
     entry = "test_entry_of_no_kernel"
     for _ in range(3):
         with kernel_build.first_launch(entry):

@@ -14,22 +14,23 @@ asks registers for; `BRT_K2_MID`, `BRT_K2_CROSSOVER` / `BRT_K1_CROSSOVER`
 / `BRT_K3_CROSSOVER`: the batch from which K2 runs its middle team and its
 team of 8, and K1 and K3 one lane per env, 0 for always, a large one for
 never), and, with --old-csrc, from another checkout's `csrc/` directory
-(an earlier design with the same C interface, or for K1, K2 and K3 the
-one of their designs that took no team), all nvcc runs started together;
+(an earlier design with the same C interface), all nvcc runs started
+together;
 --only names the kernels to build and time (all three by default). The
 inputs are states of the kind chip_smoke.py times: the Env01-v2, Env03-v2
 and EnvMove05-v1 main paths (4096 envs, 25 steps of the checked-in
 policies, fast solver), run through the default build, each with the
-noise of its own seeded generator (K1's draws are chip_smoke.py's). Cases: K1 at B = 256 (Env01
-serving's batch), 512, 1024 (training), 1536, 2048, 2112 (one wave of
-its 32-lane team), 2176, 3072 and 4096, fast and exact grade; K2 at B = 1
-(cli test), 512 (the evals),
-1024 (training and the flagship serving), 2048 and 4096, fast and exact
-grade, at 1,792 (the oracle's generations), fast grade, and at 896 on
-the MPC expert's lockstep batch (14 impact states x 64 candidates), fast
-and exact grade; K3 at B =
-4096, 2048, 1088, 1056 (one wave of its 32-lane team), 1024 and 512
-(EnvMove05-v1 serving's batch), fast grade, and at 512, exact grade; the
+noise of its own seeded generator (K1's draws are chip_smoke.py's).
+Every kernel runs at B = 1, at 4096 and at each crossover - 1 (the last
+batch of a rung: the library's `crossovers()`), besides these cases: K1
+at B = 256 (Env01 serving's batch), 512, 1024 (training), 1536, 2048,
+2176 and 3072, fast and exact grade (2112 is one wave of its 32-lane
+team); K2 at B = 512 (the evals), 1024 (training and the flagship
+serving) and 2048, fast and exact grade, at 1,792 (the oracle's
+generations), fast grade, and at 896 on the MPC expert's lockstep batch
+(14 impact states x 64 candidates), fast and exact grade; K3 at B = 2048,
+1088, 1024 and 512 (EnvMove05-v1 serving's batch), fast grade (1056 is one
+wave of its 32-lane team), and at 512, exact grade; the
 first B envs of the main path's states, float32; K2 at B = 4096 and 512,
 fast grade, on
 chip_smoke.random_states14's impact states, where a third of the envs have
@@ -53,7 +54,6 @@ outputs are compared with the default build's. Prints one line per build
 and case and writes everything as JSON to --out.
 """
 import argparse
-import ctypes
 import json
 import pathlib
 import sys
@@ -152,97 +152,6 @@ def serving_seconds(brt, grade):
     return time.perf_counter() - t0, float(rets.mean())
 
 
-class OldK1:
-    """A K1 library of the design with one team (its C interface: no team
-    argument, no k1_crossover, k1_launch_config without a batch) at
-    `path`, bound to the current wrapper's calls."""
-
-    def __init__(self, path):
-        from balance_robot_tpu_torch.physics import cuda_step
-        self.lib = lib = ctypes.CDLL(str(path))
-        P = ctypes.POINTER(cuda_step._params_struct()[1])
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for name in ("k1_control_step_f32", "k1_control_step_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ptr] * 8 + [i32, P] + [i32] * 4 + [ptr]
-            fn.restype = i32
-        lib.k1_launch_config.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
-
-    def __getattr__(self, name):
-        return getattr(self.lib, name)
-
-    def k1_launch_config(self, f64, B, team, envs, smem):
-        self.lib.k1_launch_config(f64, team, envs, smem)
-
-    def k1_control_step_f32(self, *args):
-        return self.lib.k1_control_step_f32(*args[:-2], args[-1])
-
-    def k1_control_step_f64(self, *args):
-        return self.lib.k1_control_step_f64(*args[:-2], args[-1])
-
-
-class OldK2:
-    """A K2 library of the design with one team (its C interface: no team
-    argument, no k2_crossover, k2_launch_config without a batch) at
-    `path`, bound to the current wrapper's calls."""
-
-    def __init__(self, path):
-        from balance_robot_tpu_torch.physics import cuda_block
-        self.lib = lib = ctypes.CDLL(str(path))
-        P = ctypes.POINTER(cuda_block._params_struct())
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for name in ("k2_control_step_f32", "k2_control_step_f64"):
-            getattr(lib, name).argtypes = [ptr] * 7 + [i32, P] \
-                + [i32] * 3 + [ptr]
-        lib.k2_launch_config.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
-        dptr = ctypes.POINTER(ctypes.c_double)
-        lib.k2_count_ops.argtypes = [dptr] * 7 + [P] + [i32] * 3 \
-            + [ctypes.POINTER(ctypes.c_longlong)]
-        lib.k2_count_ops.restype = ctypes.c_longlong
-
-    def __getattr__(self, name):
-        return getattr(self.lib, name)
-
-    def k2_crossover(self):
-        return 0
-
-    def k2_launch_config(self, f64, B, team, envs, smem):
-        self.lib.k2_launch_config(f64, team, envs, smem)
-
-    def k2_control_step_f32(self, *args):
-        return self.lib.k2_control_step_f32(*args[:-2], args[-1])
-
-    def k2_control_step_f64(self, *args):
-        return self.lib.k2_control_step_f64(*args[:-2], args[-1])
-
-
-class OldK3:
-    """A K3 library of the one-thread design (its C interface: no team
-    argument, no k3_launch_config) at `path`, bound to the current wrapper's
-    calls."""
-
-    def __init__(self, path):
-        from balance_robot_tpu_torch.physics import cuda_move
-        self.lib = lib = ctypes.CDLL(str(path))
-        P = ctypes.POINTER(cuda_move._params_struct())
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for name in ("k3_control_step_f32", "k3_control_step_f64"):
-            getattr(lib, name).argtypes = [ptr] * 7 + [i32, P] \
-                + [i32] * 3 + [ptr]
-
-    def __getattr__(self, name):
-        return getattr(self.lib, name)
-
-    def k3_launch_config(self, f64, B, team, envs, smem):
-        team._obj.value, envs._obj.value, smem._obj.value = 1, 32, 0
-
-    def k3_control_step_f32(self, *args):
-        return self.lib.k3_control_step_f32(*args[:-2], args[-1])
-
-    def k3_control_step_f64(self, *args):
-        return self.lib.k3_control_step_f64(*args[:-2], args[-1])
-
-
 def by_kind(kernel, ref):
     """{quantity: [largest drift of the envs of wall kind 0..5, of all]}
     (chip_smoke.random_states_walls deals the kinds in turn)."""
@@ -255,27 +164,20 @@ def by_kind(kernel, ref):
     return res
 
 
-def launch_shapes(mod, lib, dtype):
+def launch_shapes(kernel, lib, dtype):
     """{batches: (lanes per env, envs per block, shared bytes per block)}
-    of a build, or {} for a build without a launch-config entry."""
-    if isinstance(lib, OldK3):
-        return {}
-    if isinstance(lib, (OldK1, OldK2)):
-        return {"all": mod.launch_config(dtype, 1, lib)}
-    starts = {1, mod.crossover(lib)}
-    if mod.LABEL == "k2":
-        starts.add(mod.mid_crossover(lib))
-    return {f"B>={B}": mod.launch_config(dtype, B, lib)
-            for B in sorted(starts)}
+    of a build, one entry for each rung of its ladder."""
+    return {f"B>={B}": kernel.launch_config(dtype, B, lib)
+            for B in [1] + kernel.crossovers(lib)}
 
 
-def with_lib(mod, lib, fn):
-    """Call fn() with `lib` as the module's kernel library."""
-    saved, mod._lib = mod._lib, lib
+def with_lib(kernel, lib, fn):
+    """Call fn() with `lib` as the kernel's library."""
+    saved, kernel.lib = kernel.lib, lib
     try:
         return fn()
     finally:
-        mod._lib = saved
+        kernel.lib = saved
 
 
 def main():
@@ -327,19 +229,9 @@ def main():
         info = {}
         path = kernel_build.build(f"{mod.LABEL}_{i}", mod.SOURCE, info, proc,
                                   csrc, defines)
-        if k == "K1" and not hasattr(ctypes.CDLL(str(path)),
-                                     "k1_crossover"):
-            lib = OldK1(path)
-        elif k == "K3" and not hasattr(ctypes.CDLL(str(path)),
-                                       "k3_launch_config"):
-            lib = OldK3(path)
-        elif k == "K2" and not hasattr(ctypes.CDLL(str(path)),
-                                       "k2_crossover"):
-            lib = OldK2(path)
-        else:
-            lib = mod._bind(path)
+        lib = mod.KERNEL.bind(path)
         libs[k, bname] = lib
-        shape = {str(dt)[6:]: launch_shapes(mod, lib, dt)
+        shape = {str(dt)[6:]: launch_shapes(mod.KERNEL, lib, dt)
                  for dt in (torch.float32, torch.float64)}
         ptxas = [line.strip() for line in info["ptxas"].splitlines()
                  if "Used" in line or "spill" in line or "stack" in line]
@@ -347,11 +239,11 @@ def main():
             "defines": list(defines), "old": csrc is not None,
             "team_envs_smem": shape, "ptxas": ptxas}
         print(f"build {k} {bname}: (team, envs per block, shared bytes per "
-              f"block) {shape if shape['float32'] else 'one thread per env'}")
+              f"block) {shape}")
         for line in ptxas:
             print("  ptxas:", line)
     for k, (mod, _) in kernels.items():
-        mod._lib = libs[k, "default"]
+        mod.KERNEL.lib = libs[k, "default"]
 
     # ---- inputs: the main paths' states, through the default builds, each
     # kernel's path with the noise of its own generator (MAIN_PATH_SEEDS),
@@ -368,6 +260,12 @@ def main():
                  for x in arrays]
             return [t[0], t[1], torch.zeros_like(t[1]), t[2]]
 
+        def edges(kernel):
+            """B = 1, 4096 and each crossover - 1 (the last batch of a
+            rung) of `kernel`'s default build."""
+            crossovers = kernels[kernel][0].KERNEL.crossovers()
+            return {1, 4096} | {x - 1 for x in crossovers}
+
         cases = []
         if "K1" in kernels:
             env01, s01, _ = main_path_inputs(brt, "Env01-v2",
@@ -375,8 +273,8 @@ def main():
             cases += [("K1", B, grade, s01, (None, params))
                       for grade, params in (("fast", env01.params),
                                             ("exact", rc.ENV01_PARAMS))
-                      for B in (256, 512, 1024, 1536, 2048, 2112, 2176,
-                                3072, 4096)]
+                      for B in sorted({256, 512, 1024, 1536, 2048, 2176,
+                                       3072} | edges("K1"))]
         if "K2" in kernels:
             env03, s03, s03_first = main_path_inputs(
                 brt, "Env03-v2", chip_smoke.POLICY03, gen_for("K2"))
@@ -392,7 +290,7 @@ def main():
             grades = {"fast": (env03.params,), "exact": (bs.ENV03_PARAMS,)}
             cases += [("K2", B, grade, s03, grades[grade])
                       for grade in grades
-                      for B in (1, 512, 1024, 2048, 4096)]
+                      for B in sorted({512, 1024, 2048} | edges("K2"))]
             cases += [("K2", 896, grade + " lockstep", lockstep,
                        grades[grade]) for grade in grades]
             cases += [("K2", 1792, "fast", s03, (env03.params,)),
@@ -406,25 +304,22 @@ def main():
             at_wall = on_card(chip_smoke.random_states_walls(
                 np.random.default_rng(5), chip_smoke.N_ENVS))
             fast = (env_move.params,)
-            cases += [("K3", 4096, "fast", smove, fast),
-                      ("K3", 2048, "fast", smove, fast),
-                      ("K3", 1088, "fast", smove, fast),
-                      ("K3", 1056, "fast", smove, fast),
-                      ("K3", 1024, "fast", smove, fast),
-                      ("K3", 512, "fast", smove, fast),
-                      ("K3", 512, "exact", smove, (MOVE05_PARAMS,)),
+            cases += [("K3", B, "fast", smove, fast) for B in sorted(
+                {512, 1024, 1088, 2048} | edges("K3"), reverse=True)]
+            cases += [("K3", 512, "exact", smove, (MOVE05_PARAMS,)),
                       ("K3", 4096, "fast at-wall", at_wall, fast),
                       ("K3", 512, "fast at-wall", at_wall, fast)]
             # phase 3c's float32 K3 checks, held per kind to both plain
             # versions
-            check3 = chip_smoke.check_states(cuda_move.crossover())["K3"]
+            X3, = cuda_move.KERNEL.crossovers()
+            check3 = chip_smoke.check_states(X3)["K3"]
             cases += [("K3", B, "fast phase-3c", on_card(draws[2]), fast)
                       for B, draws in check3.items()]
         for k, B, grade, states, extra in cases:
             mod, fn = kernels[k]
             args = tuple(t[:B].contiguous() for t in states) + extra
             names = [b for (kk, b) in libs if kk == k]
-            ref = with_lib(mod, libs[k, "default"], lambda: fn(*args))
+            ref = with_lib(mod.KERNEL, libs[k, "default"], lambda: fn(*args))
             times = {b: [] for b in names}
             drift, kinds = {}, {}
             if grade.endswith("phase-3c"):
@@ -434,7 +329,7 @@ def main():
                 kinds["plain f32 vs plain f64"] = by_kind(
                     plain[torch.float32], plain[torch.float64])
             for b in names:
-                out = with_lib(mod, libs[k, b], lambda: fn(*args))
+                out = with_lib(mod.KERNEL, libs[k, b], lambda: fn(*args))
                 drift[b] = chip_smoke.drift(out, ref)
                 if kinds:
                     for dt in (torch.float32, torch.float64):
@@ -443,7 +338,8 @@ def main():
             for _ in range(opts.rounds):
                 for b in names + names[::-1]:
                     times[b].append(chip_smoke.time_kernel(
-                        lambda: with_lib(mod, libs[k, b], lambda: fn(*args))))
+                        lambda: with_lib(mod.KERNEL, libs[k, b],
+                                         lambda: fn(*args))))
             case = f"{k} B={B} {grade}"
             report["cases"][case] = {b: {"ms": times[b], "drift": drift[b]}
                                      for b in names}
@@ -470,7 +366,7 @@ def main():
             steps = {b: [] for b in names}
             for _ in range(opts.rounds):
                 for b in names + names[::-1]:
-                    t, ms = with_lib(mod, libs[k, b],
+                    t, ms = with_lib(mod.KERNEL, libs[k, b],
                                      lambda: main_path_seconds(brt, env_id,
                                                                path))
                     secs[b].append(t)
@@ -490,7 +386,7 @@ def main():
         for grade in ("fast", "exact") if names else ():
             res = {b: [] for b in names}
             for b in names + names[::-1]:
-                res[b].append(with_lib(cuda_move, libs["K3", b],
+                res[b].append(with_lib(cuda_move.KERNEL, libs["K3", b],
                                        lambda: serving_seconds(brt, grade)))
             report["cases"][f"serving EnvMove05-v1 {grade}"] = res
             for b in names:
