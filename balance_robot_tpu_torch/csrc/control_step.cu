@@ -82,6 +82,12 @@
 // frame (3,072 of it the rows), no spills; double: 255 registers, 7,184
 // bytes stack frame, 856 / 3,232 bytes spilled.
 //
+// Each rung also has a timed instantiation (TIMED; robot_common.cuh's
+// section counters), which only a launch under torch.profiler takes: the
+// same arithmetic and bits, 15 clock reads per fast substep; float: team
+// 128 registers, 656 bytes stack, 468 / 1,592 spilled; one lane 214
+// registers, no spills. Where its chain spends its time: PERF.md.
+//
 // The same templated code also runs on the host with `Counted`, a double
 // that counts every arithmetic operation, and a team of one lane:
 // k1_count_ops (on LaneRows, the one-pass solver) gives the operation
@@ -129,16 +135,20 @@ using Rows = std::conditional_t<G == 1, LaneRows<T, NV, MAXROW>,
 using Teams = Ladder<Rows, Rung<TEAM, 1>, Rung<1, CROSSOVER>>;
 
 // ------------------------------------------------------- one substep
-template <typename T, class Tm, class R>
+// `ck` takes the section edges (robot_common.cuh): SMOOTH and UPDATE here,
+// the others in team_solve.
+template <typename T, class Tm, class R, class Ck>
 BRT_HD void substep(const Tm& tm, const R& rw, T qpos[9], T qvel[8],
                     T ws[8], const T ctrl[2], T fric, bool use_fric,
-                    const Params& p, int newton_iters, int ls_iters) {
+                    const Params& p, int newton_iters, int ls_iters,
+                    Ck& ck) {
   RobotKin<T> k;
   T M[NV][NV], qfrc_smooth[NV], dfdv[2];
   robot_smooth<T, NV>(qpos, qvel, ctrl, p, k, M, qfrc_smooth, dfdv);
   T L[NV][NV], a_smooth[NV];
   chol_factor<T, NV>(M, L);
   chol_solve<T, NV>(L, qfrc_smooth, a_smooth);
+  ck.mark(SMOOTH);
 
   // ---- floor contacts: left wheel 0-3, right wheel 4-7, chassis 8-15
   T cpos[NCON][3], cdist[NCON];
@@ -179,63 +189,82 @@ BRT_HD void substep(const Tm& tm, const R& rw, T qpos[9], T qvel[8],
   const int nrow = 4 * popc(inc);
   team_solve<T, NV, MAXROW>(tm, rw, nrow, nrow, M, T(0.0), T(0.0), a_smooth,
                             qfrc_smooth, dfdv, p, newton_iters, ls_iters,
-                            qvel, ws);
+                            qvel, ws, ck);
   integrate_robot(qpos, qvel, T(p.timestep));
+  ck.mark(UPDATE);
 }
 
-template <typename T, class Tm, class R>
+template <typename T, class Tm, class R, class Ck>
 BRT_HD void control_step_one(const Tm& tm, const R& rw, T q[9],
                              T v[8], T w[8], const T c[2], T fric,
                              bool use_fric, const Params& p, int newton_iters,
-                             int ls_iters, int frame_skip) {
+                             int ls_iters, int frame_skip, Ck& ck) {
   for (int s = 0; s < frame_skip; ++s)
-    substep(tm, rw, q, v, w, c, fric, use_fric, p, newton_iters, ls_iters);
+    substep(tm, rw, q, v, w, c, fric, use_fric, p, newton_iters, ls_iters,
+            ck);
 }
 
 // One env's control step on the host (brt::count_ops) on the row store of
-// the team of G lanes.
+// the team of G lanes; `sections`, if not null, receives its counters.
 template <int G>
 long long count_ops(const double* qpos, const double* qvel, const double* ws,
                     const double* ctrl, double fric, double* qpos_out,
                     double* qvel_out, double* ws_out, const Params* p,
                     int newton_iters, int ls_iters, int frame_skip,
-                    int use_fric) {
+                    int use_fric, long long* sections) {
   return brt::count_ops<9, 8, Rows<Counted, G>>(
-      qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out,
+      qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out, sections,
       [&](const auto& tm, const auto& rw, Counted* q, Counted* v, Counted* w,
-          const Counted* c) {
+          const Counted* c, auto& ck) {
         control_step_one(tm, rw, q, v, w, c, Counted(fric), use_fric != 0,
-                         *p, newton_iters, ls_iters, frame_skip);
+                         *p, newton_iters, ls_iters, frame_skip, ck);
       });
 }
 
 #ifdef __CUDACC__
 // One warp per block, THREADS / G teams of G lanes, one env per team
 // (brt::step_envs); a team of several lanes has its registers capped for
-// BRT_K1_MINB blocks per SM.
-template <typename T, int G>
+// BRT_K1_MINB blocks per SM. The TIMED instantiation counts the sections
+// of each env's chain into `counters` (robot_common.cuh); the other leaves
+// them alone.
+template <typename T, int G, bool TIMED>
 __global__ void __launch_bounds__(THREADS, G == 1 ? 1 : BRT_K1_MINB)
     control_step_kernel(
         const T* __restrict__ qpos, const T* __restrict__ qvel,
         const T* __restrict__ ws, const T* __restrict__ ctrl,
         const T* __restrict__ fric, T* __restrict__ qpos_out,
         T* __restrict__ qvel_out, T* __restrict__ ws_out, int B, Params p,
-        int newton_iters, int ls_iters, int frame_skip, int use_fric) {
-  step_envs<T, Team<G>, Rows<T, G>, 9, 8>(
-      qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out, B,
+        int newton_iters, int ls_iters, int frame_skip, int use_fric,
+        long long* __restrict__ counters) {
+  using Ck = std::conditional_t<TIMED, SectionClock<SmCycles>, NoClock>;
+  step_envs<T, Team<G>, Rows<T, G>, 9, 8, Ck>(
+      qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out, B, counters,
       [&](const Team<G>& tm, const Rows<T, G>& rw, T* q, T* v, T* w,
-          const T* c, int i) {
+          const T* c, int i, Ck& ck) {
         T f = use_fric ? fric[i] : T(0.0);
         control_step_one(tm, rw, q, v, w, c, f, use_fric != 0, p,
-                         newton_iters, ls_iters, frame_skip);
+                         newton_iters, ls_iters, frame_skip, ck);
       });
 }
 
-// The kernel's instantiation for T and the rung of a team of g lanes.
-template <typename T>
+// The kernel's instantiation for T, the rung of a team of g lanes and
+// TIMED.
+template <typename T, bool TIMED>
 constexpr auto kernel_of = [](auto g) {
-  return control_step_kernel<T, decltype(g)::value>;
+  return control_step_kernel<T, decltype(g)::value, TIMED>;
 };
+
+// Launch the instantiation for T, TIMED and the rung of `team` lanes.
+template <typename T, bool TIMED>
+int launch(const T* qpos, const T* qvel, const T* ws, const T* ctrl,
+           const T* fric, T* qpos_out, T* qvel_out, T* ws_out, int B,
+           const Params* p, int newton_iters, int ls_iters, int frame_skip,
+           int use_fric, long long* counters, int team, void* stream) {
+  return Teams::launch<T>(team, B, stream, kernel_of<T, TIMED>, qpos, qvel,
+                          ws, ctrl, fric, qpos_out, qvel_out, ws_out, B, *p,
+                          newton_iters, ls_iters, frame_skip, use_fric,
+                          counters);
+}
 #endif
 
 }  // namespace k1
@@ -253,10 +282,10 @@ int k1_control_step_f32(const float* qpos, const float* qvel, const float* ws,
                         const k1::Params* p, int newton_iters, int ls_iters,
                         int frame_skip, int use_fric, int team,
                         void* stream) {
-  return k1::Teams::launch<float>(
-      team, B, stream, k1::kernel_of<float>, qpos, qvel, ws, ctrl, fric,
-      qpos_out, qvel_out, ws_out, B, *p, newton_iters, ls_iters, frame_skip,
-      use_fric);
+  return k1::launch<float, false>(qpos, qvel, ws, ctrl, fric, qpos_out,
+                                  qvel_out, ws_out, B, p, newton_iters,
+                                  ls_iters, frame_skip, use_fric, nullptr,
+                                  team, stream);
 }
 
 int k1_control_step_f64(const double* qpos, const double* qvel,
@@ -266,10 +295,55 @@ int k1_control_step_f64(const double* qpos, const double* qvel,
                         const k1::Params* p, int newton_iters, int ls_iters,
                         int frame_skip, int use_fric, int team,
                         void* stream) {
-  return k1::Teams::launch<double>(
-      team, B, stream, k1::kernel_of<double>, qpos, qvel, ws, ctrl, fric,
-      qpos_out, qvel_out, ws_out, B, *p, newton_iters, ls_iters, frame_skip,
-      use_fric);
+  return k1::launch<double, false>(qpos, qvel, ws, ctrl, fric, qpos_out,
+                                   qvel_out, ws_out, B, p, newton_iters,
+                                   ls_iters, frame_skip, use_fric, nullptr,
+                                   team, stream);
+}
+
+// The same with the timed instantiation, which adds each env's section
+// counters to its row of `counters` ((B, NCOUNTER) int64).
+int k1_control_step_timed_f32(const float* qpos, const float* qvel,
+                              const float* ws, const float* ctrl,
+                              const float* fric, float* qpos_out,
+                              float* qvel_out, float* ws_out, int B,
+                              const k1::Params* p, int newton_iters,
+                              int ls_iters, int frame_skip, int use_fric,
+                              long long* counters, int team, void* stream) {
+  return k1::launch<float, true>(qpos, qvel, ws, ctrl, fric, qpos_out,
+                                 qvel_out, ws_out, B, p, newton_iters,
+                                 ls_iters, frame_skip, use_fric, counters,
+                                 team, stream);
+}
+
+int k1_control_step_timed_f64(const double* qpos, const double* qvel,
+                              const double* ws, const double* ctrl,
+                              const double* fric, double* qpos_out,
+                              double* qvel_out, double* ws_out, int B,
+                              const k1::Params* p, int newton_iters,
+                              int ls_iters, int frame_skip, int use_fric,
+                              long long* counters, int team, void* stream) {
+  return k1::launch<double, true>(qpos, qvel, ws, ctrl, fric, qpos_out,
+                                  qvel_out, ws_out, B, p, newton_iters,
+                                  ls_iters, frame_skip, use_fric, counters,
+                                  team, stream);
+}
+
+// The blocks of the instantiation for float (f64 = 0) or double (f64 = 1)
+// and the rung of `team` lanes that one SM holds at once.
+int k1_blocks_per_sm(int f64, int team) {
+  return f64 ? k1::Teams::blocks_per_sm<double>(team,
+                                                  k1::kernel_of<double, false>)
+             : k1::Teams::blocks_per_sm<float>(team,
+                                                 k1::kernel_of<float, false>);
+}
+
+// Load every instantiation, timed and untimed (Ladder::load).
+int k1_load() {
+  return k1::Teams::load(k1::kernel_of<float, false>,
+                         k1::kernel_of<float, true>,
+                         k1::kernel_of<double, false>,
+                         k1::kernel_of<double, true>);
 }
 #endif
 
@@ -293,7 +367,22 @@ long long k1_count_ops(const double* qpos, const double* qvel,
                        int frame_skip, int use_fric) {
   return k1::count_ops<1>(qpos, qvel, ws, ctrl, fric, qpos_out, qvel_out,
                           ws_out, p, newton_iters, ls_iters, frame_skip,
-                          use_fric);
+                          use_fric, nullptr);
+}
+
+// The same, and `sections` receives the operations of each section of the
+// chain, the rows and the coupled Newton steps (robot_common.cuh's
+// counters but LAUNCHES).
+long long k1_count_ops_sections(const double* qpos, const double* qvel,
+                                const double* ws, const double* ctrl,
+                                double fric, double* qpos_out,
+                                double* qvel_out, double* ws_out,
+                                const k1::Params* p, int newton_iters,
+                                int ls_iters, int frame_skip, int use_fric,
+                                long long* sections) {
+  return k1::count_ops<1>(qpos, qvel, ws, ctrl, fric, qpos_out, qvel_out,
+                          ws_out, p, newton_iters, ls_iters, frame_skip,
+                          use_fric, sections);
 }
 
 // The same on the row store of the team instantiation (TeamRows, the
@@ -306,7 +395,7 @@ long long k1_count_ops_team_rows(const double* qpos, const double* qvel,
                                  int ls_iters, int frame_skip, int use_fric) {
   return k1::count_ops<k1::TEAM>(qpos, qvel, ws, ctrl, fric, qpos_out,
                                  qvel_out, ws_out, p, newton_iters, ls_iters,
-                                 frame_skip, use_fric);
+                                 frame_skip, use_fric, nullptr);
 }
 
 }  // extern "C"

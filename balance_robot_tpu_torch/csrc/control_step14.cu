@@ -105,6 +105,12 @@
 // one-team design before: float 2,208, 532 / 1,616, the collider
 // candidates indexed by lane; double 5,344, 3,676 / 9,600).
 //
+// Each rung also has a timed instantiation (TIMED; robot_common.cuh's
+// section counters), which only a launch under torch.profiler takes: the
+// same arithmetic and bits; float, 32 lanes: the same ptxas line; 16
+// lanes 1,744, 440 / 1,336; 8 lanes 1,792, 548 / 1,596. Where its chain
+// spends its time: PERF.md.
+//
 // The same templated code also runs on the host with `Counted` and a team
 // of one lane: k2_count_ops gives the operation count behind the kernel's
 // bound, and lets the kernel's arithmetic be compared with the plain
@@ -231,10 +237,12 @@ BRT_HD void block_rows(const R& rows, int r, const T cpos[3], T dist,
 }
 
 // ------------------------------------------------------- one substep
-template <typename T, class Tm>
+// `ck` takes the section edges (robot_common.cuh): SMOOTH and UPDATE here,
+// the others in team_solve.
+template <typename T, class Tm, class Ck>
 BRT_HD void substep(const Tm& tm, const Rows<T>& rw, T qpos[16], T qvel[14],
                     T ws[14], const T ctrl[2], const Params14& P,
-                    int newton_iters, int ls_iters) {
+                    int newton_iters, int ls_iters, Ck& ck) {
   const Params& p = P.robot;
   Scene<T> s;
   RobotKin<T>& k = s.k;
@@ -258,6 +266,7 @@ BRT_HD void substep(const Tm& tm, const Rows<T>& rw, T qpos[16], T qvel[14],
     chol_factor<T, 8>(Mr, L8);
     mass_solve<T, NV>(L8, mb, Ib, qfrc_smooth, a_smooth);
   }
+  ck.mark(SMOOTH);
 
   // ---- contacts: NCALL collider calls, call c on lane c mod G: 0, 1 the
   // left and right wheel on the floor (plane-cylinder, 4 candidates each),
@@ -382,47 +391,81 @@ BRT_HD void substep(const Tm& tm, const Rows<T>& rw, T qpos[16], T qvel[14],
 
   team_solve<T, NV, MAXROW>(tm, rw, nrow, couple_row, Mr, mb, Ib, a_smooth,
                             qfrc_smooth, dfdv, p, newton_iters, ls_iters,
-                            qvel, ws);
+                            qvel, ws, ck);
   const T h = T(p.timestep);
   integrate_robot(qpos, qvel, h);
   for (int i = 0; i < 3; ++i) qpos[9 + i] = qpos[9 + i] + h * qvel[8 + i];
   quat_integrate(qpos + 12, qvel + 11, h);
+  ck.mark(UPDATE);
 }
 
-template <typename T, class Tm>
+template <typename T, class Tm, class Ck>
 BRT_HD void control_step_one(const Tm& tm, const Rows<T>& rw, T q[16],
                              T v[14], T w[14], const T c[2],
                              const Params14& p, int newton_iters,
-                             int ls_iters, int frame_skip) {
+                             int ls_iters, int frame_skip, Ck& ck) {
   for (int s = 0; s < frame_skip; ++s)
-    substep(tm, rw, q, v, w, c, p, newton_iters, ls_iters);
+    substep(tm, rw, q, v, w, c, p, newton_iters, ls_iters, ck);
+}
+
+// One env's control step on the host (brt::count_ops); `sections`, if not
+// null, receives its counters.
+long long count_ops(const double* qpos, const double* qvel, const double* ws,
+                    const double* ctrl, double* qpos_out, double* qvel_out,
+                    double* ws_out, const Params14* p, int newton_iters,
+                    int ls_iters, int frame_skip,
+                    long long* coupled_factorizations, long long* sections) {
+  g_coupled = 0;
+  const long long ops = brt::count_ops<16, 14, Rows<Counted>>(
+      qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out, sections,
+      [&](const auto& tm, const auto& rw, Counted* q, Counted* v, Counted* w,
+          const Counted* c, auto& ck) {
+        control_step_one(tm, rw, q, v, w, c, *p, newton_iters, ls_iters,
+                         frame_skip, ck);
+      });
+  *coupled_factorizations = g_coupled;
+  return ops;
 }
 
 #ifdef __CUDACC__
 // One warp per block, THREADS / G teams of G lanes, one env per team
 // (brt::step_envs), each team's rows in its slice of the block's dynamic
-// shared memory.
-template <typename T, int G>
+// shared memory. The TIMED instantiation counts the sections of each env's
+// chain into `counters` (robot_common.cuh); the other leaves them alone.
+template <typename T, int G, bool TIMED>
 __global__ void __launch_bounds__(THREADS, BRT_K2_MINB) control_step14_kernel(
     const T* __restrict__ qpos, const T* __restrict__ qvel,
     const T* __restrict__ ws, const T* __restrict__ ctrl,
     T* __restrict__ qpos_out, T* __restrict__ qvel_out,
     T* __restrict__ ws_out, int B, Params14 p, int newton_iters,
-    int ls_iters, int frame_skip) {
-  step_envs<T, Team<G, SUM_LANES>, Rows<T>, 16, 14>(
-      qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out, B,
+    int ls_iters, int frame_skip, long long* __restrict__ counters) {
+  using Ck = std::conditional_t<TIMED, SectionClock<SmCycles>, NoClock>;
+  step_envs<T, Team<G, SUM_LANES>, Rows<T>, 16, 14, Ck>(
+      qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out, B, counters,
       [&](const Team<G, SUM_LANES>& tm, const Rows<T>& rw, T* q, T* v, T* w,
-          const T* c, int) {
+          const T* c, int, Ck& ck) {
         control_step_one(tm, rw, q, v, w, c, p, newton_iters, ls_iters,
-                         frame_skip);
+                         frame_skip, ck);
       });
 }
 
-// The kernel's instantiation for T and the rung of a team of g lanes.
-template <typename T>
+// The kernel's instantiation for T, the rung of a team of g lanes and
+// TIMED.
+template <typename T, bool TIMED>
 constexpr auto kernel_of = [](auto g) {
-  return control_step14_kernel<T, decltype(g)::value>;
+  return control_step14_kernel<T, decltype(g)::value, TIMED>;
 };
+
+// Launch the instantiation for T, TIMED and the rung of `team` lanes.
+template <typename T, bool TIMED>
+int launch(const T* qpos, const T* qvel, const T* ws, const T* ctrl,
+           T* qpos_out, T* qvel_out, T* ws_out, int B, const Params14* p,
+           int newton_iters, int ls_iters, int frame_skip,
+           long long* counters, int team, void* stream) {
+  return Teams::launch<T>(team, B, stream, kernel_of<T, TIMED>, qpos, qvel,
+                          ws, ctrl, qpos_out, qvel_out, ws_out, B, *p,
+                          newton_iters, ls_iters, frame_skip, counters);
+}
 #endif
 
 }  // namespace k2
@@ -438,9 +481,9 @@ int k2_control_step_f32(const float* qpos, const float* qvel, const float* ws,
                         float* ws_out, int B, const k2::Params14* p,
                         int newton_iters, int ls_iters, int frame_skip,
                         int team, void* stream) {
-  return k2::Teams::launch<float>(
-      team, B, stream, k2::kernel_of<float>, qpos, qvel, ws, ctrl, qpos_out,
-      qvel_out, ws_out, B, *p, newton_iters, ls_iters, frame_skip);
+  return k2::launch<float, false>(qpos, qvel, ws, ctrl, qpos_out, qvel_out,
+                                  ws_out, B, p, newton_iters, ls_iters,
+                                  frame_skip, nullptr, team, stream);
 }
 
 int k2_control_step_f64(const double* qpos, const double* qvel,
@@ -449,9 +492,50 @@ int k2_control_step_f64(const double* qpos, const double* qvel,
                         int B, const k2::Params14* p, int newton_iters,
                         int ls_iters, int frame_skip, int team,
                         void* stream) {
-  return k2::Teams::launch<double>(
-      team, B, stream, k2::kernel_of<double>, qpos, qvel, ws, ctrl, qpos_out,
-      qvel_out, ws_out, B, *p, newton_iters, ls_iters, frame_skip);
+  return k2::launch<double, false>(qpos, qvel, ws, ctrl, qpos_out, qvel_out,
+                                   ws_out, B, p, newton_iters, ls_iters,
+                                   frame_skip, nullptr, team, stream);
+}
+
+// The same with the timed instantiation, which adds each env's section
+// counters to its row of `counters` ((B, NCOUNTER) int64).
+int k2_control_step_timed_f32(const float* qpos, const float* qvel,
+                              const float* ws, const float* ctrl,
+                              float* qpos_out, float* qvel_out,
+                              float* ws_out, int B, const k2::Params14* p,
+                              int newton_iters, int ls_iters, int frame_skip,
+                              long long* counters, int team, void* stream) {
+  return k2::launch<float, true>(qpos, qvel, ws, ctrl, qpos_out, qvel_out,
+                                 ws_out, B, p, newton_iters, ls_iters,
+                                 frame_skip, counters, team, stream);
+}
+
+int k2_control_step_timed_f64(const double* qpos, const double* qvel,
+                              const double* ws, const double* ctrl,
+                              double* qpos_out, double* qvel_out,
+                              double* ws_out, int B, const k2::Params14* p,
+                              int newton_iters, int ls_iters, int frame_skip,
+                              long long* counters, int team, void* stream) {
+  return k2::launch<double, true>(qpos, qvel, ws, ctrl, qpos_out, qvel_out,
+                                  ws_out, B, p, newton_iters, ls_iters,
+                                  frame_skip, counters, team, stream);
+}
+
+// The blocks of the instantiation for float (f64 = 0) or double (f64 = 1)
+// and the rung of `team` lanes that one SM holds at once.
+int k2_blocks_per_sm(int f64, int team) {
+  return f64 ? k2::Teams::blocks_per_sm<double>(team,
+                                                  k2::kernel_of<double, false>)
+             : k2::Teams::blocks_per_sm<float>(team,
+                                                 k2::kernel_of<float, false>);
+}
+
+// Load every instantiation, timed and untimed (Ladder::load).
+int k2_load() {
+  return k2::Teams::load(k2::kernel_of<float, false>,
+                         k2::kernel_of<float, true>,
+                         k2::kernel_of<double, false>,
+                         k2::kernel_of<double, true>);
 }
 #endif
 
@@ -476,16 +560,25 @@ long long k2_count_ops(const double* qpos, const double* qvel,
                        double* qpos_out, double* qvel_out, double* ws_out,
                        const k2::Params14* p, int newton_iters, int ls_iters,
                        int frame_skip, long long* coupled_factorizations) {
-  using T = brt::Counted;
-  brt::g_coupled = 0;
-  const long long ops = brt::count_ops<16, 14, k2::Rows<T>>(
-      qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out,
-      [&](const auto& tm, const auto& rw, T* q, T* v, T* w, const T* c) {
-        k2::control_step_one(tm, rw, q, v, w, c, *p, newton_iters, ls_iters,
-                             frame_skip);
-      });
-  *coupled_factorizations = brt::g_coupled;
-  return ops;
+  return k2::count_ops(qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out, p,
+                       newton_iters, ls_iters, frame_skip,
+                       coupled_factorizations, nullptr);
+}
+
+// The same, and `sections` receives the operations of each section of the
+// chain, the rows and the coupled Newton steps (robot_common.cuh's
+// counters but LAUNCHES).
+long long k2_count_ops_sections(const double* qpos, const double* qvel,
+                                const double* ws, const double* ctrl,
+                                double* qpos_out, double* qvel_out,
+                                double* ws_out, const k2::Params14* p,
+                                int newton_iters, int ls_iters,
+                                int frame_skip,
+                                long long* coupled_factorizations,
+                                long long* sections) {
+  return k2::count_ops(qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out, p,
+                       newton_iters, ls_iters, frame_skip,
+                       coupled_factorizations, sections);
 }
 
 }  // extern "C"

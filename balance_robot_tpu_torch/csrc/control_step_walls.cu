@@ -92,6 +92,12 @@
 // float 14,736 bytes stack, 360 / 1,276 spilled; double 30,400, 2,140 /
 // 6,716).
 //
+// Each rung also has a timed instantiation (TIMED; robot_common.cuh's
+// section counters), which only a launch under torch.profiler takes: the
+// same arithmetic and bits; float, 32 lanes 2,176 bytes stack, 336 /
+// 1,168 spilled; one lane 15,120, 248 / 836. Where its chain spends its
+// time: PERF.md.
+//
 // The same templated code also runs on the host with `Counted` and a team
 // of one lane: k3_count_ops (on LaneRows, the one-pass solver) gives the
 // operation count behind the kernel's bound, and with
@@ -152,10 +158,12 @@ BRT_HD void wall_rows(const R& rows, int r, const T cpos[3], T dist,
 }
 
 // ------------------------------------------------------- one substep
-template <typename T, class Tm, class R>
+// `ck` takes the section edges (robot_common.cuh): SMOOTH and UPDATE here,
+// the others in team_solve.
+template <typename T, class Tm, class R, class Ck>
 BRT_HD void substep(const Tm& tm, const R& rw, T qpos[9], T qvel[8],
                     T ws[8], const T ctrl[2], const ParamsWalls& P,
-                    int newton_iters, int ls_iters) {
+                    int newton_iters, int ls_iters, Ck& ck) {
   constexpr int G = Tm::G;
   const Params& p = P.robot;
   RobotKin<T> k;
@@ -167,6 +175,7 @@ BRT_HD void substep(const Tm& tm, const R& rw, T qpos[9], T qvel[8],
     chol_factor<T, NV>(M, L);
     chol_solve<T, NV>(L, qfrc_smooth, a_smooth);
   }
+  ck.mark(SMOOTH);
 
   // ---- floor contacts, on every lane: left wheel 0-3, right wheel 4-7,
   // chassis 8-15; candidate c goes to lane c mod G, at the slot its
@@ -250,60 +259,76 @@ BRT_HD void substep(const Tm& tm, const R& rw, T qpos[9], T qvel[8],
 
   team_solve<T, NV, MAXROW>(tm, rw, nrow, nrow, M, T(0.0), T(0.0), a_smooth,
                             qfrc_smooth, dfdv, p, newton_iters, ls_iters,
-                            qvel, ws);
+                            qvel, ws, ck);
   integrate_robot(qpos, qvel, T(p.timestep));
+  ck.mark(UPDATE);
 }
 
-template <typename T, class Tm, class R>
+template <typename T, class Tm, class R, class Ck>
 BRT_HD void control_step_one(const Tm& tm, const R& rw, T q[9],
                              T v[8], T w[8], const T c[2],
                              const ParamsWalls& p, int newton_iters,
-                             int ls_iters, int frame_skip) {
+                             int ls_iters, int frame_skip, Ck& ck) {
   for (int s = 0; s < frame_skip; ++s)
-    substep(tm, rw, q, v, w, c, p, newton_iters, ls_iters);
+    substep(tm, rw, q, v, w, c, p, newton_iters, ls_iters, ck);
 }
 
 // One env's control step on the host (brt::count_ops) on the row store of
-// the team of G lanes.
+// the team of G lanes; `sections`, if not null, receives its counters.
 template <int G>
 long long count_ops(const double* qpos, const double* qvel, const double* ws,
                     const double* ctrl, double* qpos_out, double* qvel_out,
                     double* ws_out, const ParamsWalls* p, int newton_iters,
-                    int ls_iters, int frame_skip) {
+                    int ls_iters, int frame_skip, long long* sections) {
   return brt::count_ops<9, 8, Rows<Counted, G>>(
-      qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out,
+      qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out, sections,
       [&](const auto& tm, const auto& rw, Counted* q, Counted* v, Counted* w,
-          const Counted* c) {
+          const Counted* c, auto& ck) {
         control_step_one(tm, rw, q, v, w, c, *p, newton_iters, ls_iters,
-                         frame_skip);
+                         frame_skip, ck);
       });
 }
 
 #ifdef __CUDACC__
 // One warp per block, THREADS / G teams of G lanes, one env per team
-// (brt::step_envs).
-template <typename T, int G>
+// (brt::step_envs). The TIMED instantiation counts the sections of each
+// env's chain into `counters` (robot_common.cuh); the other leaves them
+// alone.
+template <typename T, int G, bool TIMED>
 __global__ void __launch_bounds__(THREADS, 1)
     control_step_walls_kernel(
         const T* __restrict__ qpos, const T* __restrict__ qvel,
         const T* __restrict__ ws, const T* __restrict__ ctrl,
         T* __restrict__ qpos_out, T* __restrict__ qvel_out,
         T* __restrict__ ws_out, int B, ParamsWalls p, int newton_iters,
-        int ls_iters, int frame_skip) {
-  step_envs<T, Team<G>, Rows<T, G>, 9, 8>(
-      qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out, B,
+        int ls_iters, int frame_skip, long long* __restrict__ counters) {
+  using Ck = std::conditional_t<TIMED, SectionClock<SmCycles>, NoClock>;
+  step_envs<T, Team<G>, Rows<T, G>, 9, 8, Ck>(
+      qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out, B, counters,
       [&](const Team<G>& tm, const Rows<T, G>& rw, T* q, T* v, T* w,
-          const T* c, int) {
+          const T* c, int, Ck& ck) {
         control_step_one(tm, rw, q, v, w, c, p, newton_iters, ls_iters,
-                         frame_skip);
+                         frame_skip, ck);
       });
 }
 
-// The kernel's instantiation for T and the rung of a team of g lanes.
-template <typename T>
+// The kernel's instantiation for T, the rung of a team of g lanes and
+// TIMED.
+template <typename T, bool TIMED>
 constexpr auto kernel_of = [](auto g) {
-  return control_step_walls_kernel<T, decltype(g)::value>;
+  return control_step_walls_kernel<T, decltype(g)::value, TIMED>;
 };
+
+// Launch the instantiation for T, TIMED and the rung of `team` lanes.
+template <typename T, bool TIMED>
+int launch(const T* qpos, const T* qvel, const T* ws, const T* ctrl,
+           T* qpos_out, T* qvel_out, T* ws_out, int B, const ParamsWalls* p,
+           int newton_iters, int ls_iters, int frame_skip,
+           long long* counters, int team, void* stream) {
+  return Teams::launch<T>(team, B, stream, kernel_of<T, TIMED>, qpos, qvel,
+                          ws, ctrl, qpos_out, qvel_out, ws_out, B, *p,
+                          newton_iters, ls_iters, frame_skip, counters);
+}
 #endif
 
 }  // namespace k3
@@ -319,9 +344,9 @@ int k3_control_step_f32(const float* qpos, const float* qvel, const float* ws,
                         float* ws_out, int B, const k3::ParamsWalls* p,
                         int newton_iters, int ls_iters, int frame_skip,
                         int team, void* stream) {
-  return k3::Teams::launch<float>(
-      team, B, stream, k3::kernel_of<float>, qpos, qvel, ws, ctrl, qpos_out,
-      qvel_out, ws_out, B, *p, newton_iters, ls_iters, frame_skip);
+  return k3::launch<float, false>(qpos, qvel, ws, ctrl, qpos_out, qvel_out,
+                                  ws_out, B, p, newton_iters, ls_iters,
+                                  frame_skip, nullptr, team, stream);
 }
 
 int k3_control_step_f64(const double* qpos, const double* qvel,
@@ -330,9 +355,51 @@ int k3_control_step_f64(const double* qpos, const double* qvel,
                         int B, const k3::ParamsWalls* p, int newton_iters,
                         int ls_iters, int frame_skip, int team,
                         void* stream) {
-  return k3::Teams::launch<double>(
-      team, B, stream, k3::kernel_of<double>, qpos, qvel, ws, ctrl, qpos_out,
-      qvel_out, ws_out, B, *p, newton_iters, ls_iters, frame_skip);
+  return k3::launch<double, false>(qpos, qvel, ws, ctrl, qpos_out, qvel_out,
+                                   ws_out, B, p, newton_iters, ls_iters,
+                                   frame_skip, nullptr, team, stream);
+}
+
+// The same with the timed instantiation, which adds each env's section
+// counters to its row of `counters` ((B, NCOUNTER) int64).
+int k3_control_step_timed_f32(const float* qpos, const float* qvel,
+                              const float* ws, const float* ctrl,
+                              float* qpos_out, float* qvel_out,
+                              float* ws_out, int B, const k3::ParamsWalls* p,
+                              int newton_iters, int ls_iters, int frame_skip,
+                              long long* counters, int team, void* stream) {
+  return k3::launch<float, true>(qpos, qvel, ws, ctrl, qpos_out, qvel_out,
+                                 ws_out, B, p, newton_iters, ls_iters,
+                                 frame_skip, counters, team, stream);
+}
+
+int k3_control_step_timed_f64(const double* qpos, const double* qvel,
+                              const double* ws, const double* ctrl,
+                              double* qpos_out, double* qvel_out,
+                              double* ws_out, int B,
+                              const k3::ParamsWalls* p, int newton_iters,
+                              int ls_iters, int frame_skip,
+                              long long* counters, int team, void* stream) {
+  return k3::launch<double, true>(qpos, qvel, ws, ctrl, qpos_out, qvel_out,
+                                  ws_out, B, p, newton_iters, ls_iters,
+                                  frame_skip, counters, team, stream);
+}
+
+// The blocks of the instantiation for float (f64 = 0) or double (f64 = 1)
+// and the rung of `team` lanes that one SM holds at once.
+int k3_blocks_per_sm(int f64, int team) {
+  return f64 ? k3::Teams::blocks_per_sm<double>(team,
+                                                  k3::kernel_of<double, false>)
+             : k3::Teams::blocks_per_sm<float>(team,
+                                                 k3::kernel_of<float, false>);
+}
+
+// Load every instantiation, timed and untimed (Ladder::load).
+int k3_load() {
+  return k3::Teams::load(k3::kernel_of<float, false>,
+                         k3::kernel_of<float, true>,
+                         k3::kernel_of<double, false>,
+                         k3::kernel_of<double, true>);
 }
 #endif
 
@@ -358,7 +425,20 @@ long long k3_count_ops(const double* qpos, const double* qvel,
                        const k3::ParamsWalls* p, int newton_iters,
                        int ls_iters, int frame_skip) {
   return k3::count_ops<1>(qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out,
-                          p, newton_iters, ls_iters, frame_skip);
+                          p, newton_iters, ls_iters, frame_skip, nullptr);
+}
+
+// The same, and `sections` receives the operations of each section of the
+// chain, the rows and the coupled Newton steps (robot_common.cuh's
+// counters but LAUNCHES).
+long long k3_count_ops_sections(const double* qpos, const double* qvel,
+                                const double* ws, const double* ctrl,
+                                double* qpos_out, double* qvel_out,
+                                double* ws_out, const k3::ParamsWalls* p,
+                                int newton_iters, int ls_iters,
+                                int frame_skip, long long* sections) {
+  return k3::count_ops<1>(qpos, qvel, ws, ctrl, qpos_out, qvel_out, ws_out,
+                          p, newton_iters, ls_iters, frame_skip, sections);
 }
 
 // The same on the row store of the team instantiation (TeamRows, the
@@ -371,7 +451,7 @@ long long k3_count_ops_team_rows(const double* qpos, const double* qvel,
                                  int frame_skip) {
   return k3::count_ops<k3::TEAM>(qpos, qvel, ws, ctrl, qpos_out, qvel_out,
                                  ws_out, p, newton_iters, ls_iters,
-                                 frame_skip);
+                                 frame_skip, nullptr);
 }
 
 }  // extern "C"

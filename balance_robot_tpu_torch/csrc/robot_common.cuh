@@ -20,7 +20,7 @@
 // shuffle sums, the Newton Hessian and gradient split by entry, and M's and
 // H's block structure used for K2's 14 dofs (K1, K2, K3). What bounds it is the
 // serial chain that stays on every lane: each kernel's note gives its
-// figures.
+// figures. The section counters say where that chain spends its time.
 
 #pragma once
 
@@ -129,6 +129,93 @@ BRT_HD Counted Abs(Counted x) { tick(); return Counted(fabs(x.v)); }
 template <typename T> BRT_HD T Max(T a, T b) { tick(); return a < b ? b : a; }
 template <typename T> BRT_HD T Min(T a, T b) { tick(); return b < a ? b : a; }
 template <typename T> BRT_HD T Clip(T x, T lo, T hi) { return Min(Max(x, lo), hi); }
+
+// ------------------------------------------------------- section counters
+// Where an env's control step spends its time, by section of the chain
+// that K1, K2 and K3 share. The edges lie in team_solve and in each
+// kernel's substep; the time since the last edge goes to the section that
+// an edge closes:
+//   SMOOTH      the substep's start to a_smooth (robot_smooth, M's factor
+//               and solve; K2 also the block's pose and bias);
+//   CONTACTS    the colliders, the team's scan, the staging and the rows
+//               written, up to team_solve;
+//   HESSIAN     warm start's cost pass, then for each Newton step da / Mda,
+//               the row pass (jar, w) and the Hessian and gradient, up to H
+//               being written;
+//   FACTOR      ng, the split or the coupled factorization and solve, Ms,
+//               dMd, dMda;
+//   LINESEARCH  the Jd pass, the ls_iters iterations, the update of a;
+//   UPDATE      the constraint forces, the implicitfast update, qvel / ws,
+//               the integration.
+// An env's counters: the six sections, then ROWS (nrow summed over the
+// substeps), COUPLED (the Newton steps that factorized K2's 14 x 14 H) and
+// LAUNCHES. A kernel's timed instantiation counts SM cycles
+// (SectionClock<SmCycles>) and adds them to the env's row of a device
+// buffer; the host build counts operations (SectionClock<CountedOps>); the
+// untimed instantiation takes NoClock, whose every call compiles out.
+enum Section { SMOOTH, CONTACTS, HESSIAN, FACTOR, LINESEARCH, UPDATE,
+               NSECTION };
+constexpr int ROWS = NSECTION, COUPLED = NSECTION + 1,
+              LAUNCHES = NSECTION + 2, NCOUNTER = NSECTION + 3;
+
+struct NoClock {
+  BRT_HD void mark(Section) {}
+  BRT_HD void add_rows(int) {}
+  BRT_HD void add_coupled() {}
+  BRT_HD void add_to(long long*) const {}
+};
+
+// The low 32 bits of the SM's cycle counter: a section's sum over one
+// launch stays below 2^32 cycles (2.2 s at 1980 MHz), in fewer registers
+// than 64 bits take.
+struct SmCycles {
+  using Tick = unsigned;
+  BRT_HD static Tick now() {
+#ifdef __CUDA_ARCH__
+    unsigned t;
+    asm volatile("mov.u32 %0, %%clock;" : "=r"(t));
+    return t;
+#else
+    return 0;
+#endif
+  }
+};
+
+// The operations counted so far (host builds).
+struct CountedOps {
+  using Tick = long long;
+  BRT_HD static Tick now() {
+#ifdef __CUDA_ARCH__
+    return 0;
+#else
+    return g_ops;
+#endif
+  }
+};
+
+template <class Now>
+struct SectionClock {
+  using Tick = typename Now::Tick;
+  Tick last, acc[NSECTION];
+  int rows = 0, coupled = 0;
+  BRT_HD SectionClock() : last(Now::now()) {
+    for (int s = 0; s < NSECTION; ++s) acc[s] = 0;
+  }
+  BRT_HD void mark(Section s) {
+    const Tick t = Now::now();
+    acc[s] += t - last;
+    last = t;
+  }
+  BRT_HD void add_rows(int n) { rows += n; }
+  BRT_HD void add_coupled() { ++coupled; }
+  // Add this launch's counts to `row` (NCOUNTER values).
+  BRT_HD void add_to(long long* row) const {
+    for (int s = 0; s < NSECTION; ++s) row[s] += (long long)acc[s];
+    row[ROWS] += rows;
+    row[COUPLED] += coupled;
+    row[LAUNCHES] += 1;
+  }
+};
 
 // ------------------------------------------------------- small algebra
 template <typename T>
@@ -844,13 +931,15 @@ BRT_HD void factor_solve_split(const F& H, const T ng[NV], T step[NV]) {
 // registers: the same operations in the same order as the by-entry code,
 // so the same bits. On TeamRows every team, one lane included (the host
 // builds of K1, K2 and K3's team instantiation), runs the by-entry code.
-template <typename T, int NV, int MAXROW, class Tm,
-          class R = TeamRows<T, NV, MAXROW>>
+// `ck` takes the section edges from CONTACTS to LINESEARCH (see above).
+template <typename T, int NV, int MAXROW, class Tm, class R, class Ck>
 BRT_HD void team_solve(const Tm& tm, const R& rw, int nrow, int couple_row,
                        T Mr[8][8], T mb, T Ib, const T a_smooth[NV],
                        const T qfrc_smooth[NV], const T dfdv[2],
                        const Params& p, int newton_iters, int ls_iters,
-                       T* qvel, T* ws) {
+                       T* qvel, T* ws, Ck& ck) {
+  ck.mark(CONTACTS);
+  ck.add_rows(nrow);
   constexpr int G = Tm::G;
   constexpr bool ONE_PASS = R::ONE_PASS;
   static_assert(!ONE_PASS || G == 1, "a one-pass row store has one lane");
@@ -966,6 +1055,7 @@ BRT_HD void team_solve(const Tm& tm, const R& rw, int nrow, int couple_row,
         if (tm.lane + k * G < NE + NV) rw.H(tm.lane + k * G) = acc[k];
       tm.sync();
     }
+    ck.mark(HESSIAN);
     // H = M + the lanes' sums, read from shared memory entry by entry as
     // the factorization needs it (a one-pass store: from registers): only
     // the factor lives in registers
@@ -987,6 +1077,7 @@ BRT_HD void team_solve(const Tm& tm, const R& rw, int nrow, int couple_row,
 #ifndef __CUDA_ARCH__
       g_coupled += 1;
 #endif
+      ck.add_coupled();
       T L[NV][NV];
       chol_factor_by<T, NV>(H, L);
       chol_solve<T, NV>(L, ng, step);
@@ -999,6 +1090,7 @@ BRT_HD void team_solve(const Tm& tm, const R& rw, int nrow, int couple_row,
       dMd = dMd + step[r] * Ms[r];
       dMda = dMda + Ms[r] * da[r];
     }
+    ck.mark(FACTOR);
 #pragma unroll 1
     for (int row = tm.lane; row < nrow; row += G) {
       T s = rw.J(row, 0) * step[0];
@@ -1026,6 +1118,7 @@ BRT_HD void team_solve(const Tm& tm, const R& rw, int nrow, int couple_row,
     t = Max(t, T(0.0));
 #pragma unroll
     for (int j = 0; j < NV; ++j) a[j] = a[j] + t * step[j];
+    ck.mark(LINESEARCH);
   }
 
   // ---- constraint forces (by entry, as the gradient) and implicitfast
@@ -1212,18 +1305,56 @@ struct Ladder {
                                                 args...);
     });
   }
+
+  // The blocks of the rung of `team` lanes that one SM holds at once (the
+  // occupancy of kernel_of(g) with the rung's shared memory), 0 for a team
+  // that no rung has: a launch of more blocks than the SMs hold takes
+  // more than one wave.
+  template <typename T, class K>
+  static int blocks_per_sm(int team, const K& kernel_of) {
+    return with_team(team, 0, [&](auto g) {
+      constexpr int G = decltype(g)::value;
+      const int smem = smem_bytes<T, G>();
+      int n = 0;
+      if (allow_smem(kernel_of(g), smem) == 0)
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel_of(g),
+                                                      THREADS, smem);
+      return n;
+    });
+  }
+
+  // Load the instantiation of every rung that each kernel_of gives, so
+  // that no launch pays CUDA's lazy load of its kernel (a query loads it);
+  // returns the first CUDA error, 0 if none.
+  template <class... K>
+  static int load(const K&... kernel_of) {
+    int err = 0;
+    auto query = [&](auto kernel) {
+      cudaFuncAttributes attr;
+      if (!err) err = (int)cudaFuncGetAttributes(&attr, kernel);
+    };
+    auto rungs = [&](const auto& of) {
+      (query(of(std::integral_constant<int, R::G>())), ...);
+    };
+    (rungs(kernel_of), ...);
+    return err;
+  }
 #endif
 };
 
 #ifdef __CUDACC__
 // The body of a kernel of one-warp blocks, THREADS / G teams Tm of G lanes
-// each and one env per team: env i's state in, step(tm, rw, q, v, w, c, i),
-// and lane 0's state out. A team on LaneRows keeps its rows in its own
-// local array, any other in its slice of the block's dynamic shared memory.
-template <typename T, class Tm, class Rw, int NQ, int NV, class Step>
+// each and one env per team: env i's state in, step(tm, rw, q, v, w, c, i,
+// ck), and lane 0's state out; lane 0 adds the section counters of the
+// clock Ck to env i's row of `counters` (NCOUNTER values per env; a
+// NoClock adds nothing and `counters` may be null). A team on LaneRows
+// keeps its rows in its own local array, any other in its slice of the
+// block's dynamic shared memory.
+template <typename T, class Tm, class Rw, int NQ, int NV, class Ck,
+          class Step>
 __device__ __forceinline__ void step_envs(
     const T* qpos, const T* qvel, const T* ws, const T* ctrl, T* qpos_out,
-    T* qvel_out, T* ws_out, int B, const Step& step) {
+    T* qvel_out, T* ws_out, int B, long long* counters, const Step& step) {
   constexpr int G = Tm::G;
   extern __shared__ __align__(16) unsigned char smem[];
   alignas(16) T own[Rw::ONE_PASS ? Rw::SIZE : 1];
@@ -1243,23 +1374,27 @@ __device__ __forceinline__ void step_envs(
   }
   c[0] = ctrl[2 * i];
   c[1] = ctrl[2 * i + 1];
-  step(tm, rw, q, v, w, c, i);
+  Ck ck;
+  step(tm, rw, q, v, w, c, i, ck);
   if (tm.lane != 0) return;
   for (int k = 0; k < NQ; ++k) qpos_out[NQ * i + k] = q[k];
   for (int k = 0; k < NV; ++k) {
     qvel_out[NV * i + k] = v[k];
     ws_out[NV * i + k] = w[k];
   }
+  ck.add_to(counters + NCOUNTER * i);
 }
 #endif
 
 // One env's control step on the host in double, every arithmetic
 // operation counted, as a team of one lane on the row store Rw: the state
-// in, step(tm, rw, q, v, w, c), the state out; returns the count.
+// in, step(tm, rw, q, v, w, c, ck), the state out; returns the count. If
+// `sections` is not null it receives the operations of each section, the
+// rows and the coupled Newton steps (NCOUNTER - 1 values; see above).
 template <int NQ, int NV, class Rw, class Step>
 long long count_ops(const double* qpos, const double* qvel, const double* ws,
                     const double* ctrl, double* qpos_out, double* qvel_out,
-                    double* ws_out, const Step& step) {
+                    double* ws_out, long long* sections, const Step& step) {
   using T = Counted;
   static T buf[Rw::SIZE];
   const Team<1> tm{0, 1u};
@@ -1273,11 +1408,17 @@ long long count_ops(const double* qpos, const double* qvel, const double* ws,
   c[0] = T(ctrl[0]);
   c[1] = T(ctrl[1]);
   g_ops = 0;
-  step(tm, rw, q, v, w, c);
+  SectionClock<CountedOps> ck;
+  step(tm, rw, q, v, w, c, ck);
   for (int k = 0; k < NQ; ++k) qpos_out[k] = q[k].v;
   for (int k = 0; k < NV; ++k) {
     qvel_out[k] = v[k].v;
     ws_out[k] = w[k].v;
+  }
+  if (sections) {
+    long long row[NCOUNTER] = {};
+    ck.add_to(row);
+    for (int k = 0; k < LAUNCHES; ++k) sections[k] = row[k];
   }
   return g_ops;
 }

@@ -113,13 +113,15 @@ def control_step14_cuda(qpos, qvel, ws, ctrl, params, frame_skip=250):
 
 
 def count_ops(qpos, qvel, ws, ctrl, params, frame_skip=250, lib=None,
-              coupled=None):
+              coupled=None, sections=None):
     """Run K2's own source on the host, in double, for one control step of
     each env given (CPU tensors). Returns (counts, qpos', qvel', ws'): the
     arithmetic operations per env and the new state. `lib` is a library
     bound with `KERNEL.bind` (the source compiled as plain C++); by default
     the nvcc build. A list `coupled` receives, per env, the Newton steps
-    that factorized H as 14 x 14 because a robot-block row was active."""
+    that factorized H as 14 x 14 because a robot-block row was active; a
+    list `sections` each env's operations by section of the chain, its
+    rows and coupled steps (`Kernel.count_ops`)."""
     kp = kernel_params(params)
     n_coupled = ctypes.c_longlong()
 
@@ -129,4 +131,5 @@ def count_ops(qpos, qvel, ws, ctrl, params, frame_skip=250, lib=None,
         if coupled is not None:
             coupled.append(n_coupled.value)
         return n
-    return KERNEL.count_ops((qpos, qvel, ws, ctrl), count_one, lib)
+    return KERNEL.count_ops((qpos, qvel, ws, ctrl), count_one, lib,
+                            sections)

@@ -122,15 +122,18 @@ def control_step_walls_cuda(qpos, qvel, ws, ctrl, params, frame_skip=250):
                          kernel_params(params), params, frame_skip)
 
 
-def count_ops(qpos, qvel, ws, ctrl, params, frame_skip=250, lib=None):
+def count_ops(qpos, qvel, ws, ctrl, params, frame_skip=250, lib=None,
+              sections=None):
     """Run K3's own source on the host, in double, for one control step of
     each env given (CPU tensors). Returns (counts, qpos', qvel', ws'): the
     arithmetic operations per env and the new state. `lib` is a library
     bound with `KERNEL.bind` (the source compiled as plain C++); by default
-    the nvcc build."""
+    the nvcc build. A list `sections` receives each env's operations by
+    section of the chain, its rows and coupled steps (`Kernel.count_ops`)."""
     kp = kernel_params(params)
 
     def count_one(entry, i, ins, outs):
         return entry(*ins, *outs, ctypes.byref(kp), params.newton_iters,
                      params.ls_iters, frame_skip)
-    return KERNEL.count_ops((qpos, qvel, ws, ctrl), count_one, lib)
+    return KERNEL.count_ops((qpos, qvel, ws, ctrl), count_one, lib,
+                            sections)

@@ -101,12 +101,13 @@ def control_step_cuda(qpos, qvel, ws, ctrl, friction, params, frame_skip=250):
 
 
 def count_ops(qpos, qvel, ws, ctrl, friction, params, frame_skip=250,
-              lib=None):
+              lib=None, sections=None):
     """Run K1's own source on the host, in double, for one control step of
     each env given (CPU tensors). Returns (counts, qpos', qvel', ws'): the
     arithmetic operations per env and the new state. `lib` is a library
     bound with `KERNEL.bind` (the source compiled as plain C++); by default
-    the nvcc build."""
+    the nvcc build. A list `sections` receives each env's operations by
+    section of the chain, its rows and coupled steps (`Kernel.count_ops`)."""
     kp = ck.kernel_params(params)
     use_friction = friction is not None and params.dynamic_friction
 
@@ -114,4 +115,5 @@ def count_ops(qpos, qvel, ws, ctrl, friction, params, frame_skip=250,
         fr = float(friction[i]) if use_friction else 0.0
         return entry(*ins, fr, *outs, ctypes.byref(kp), params.newton_iters,
                      params.ls_iters, frame_skip, int(use_friction))
-    return KERNEL.count_ops((qpos, qvel, ws, ctrl), count_one, lib)
+    return KERNEL.count_ops((qpos, qvel, ws, ctrl), count_one, lib,
+                            sections)

@@ -19,7 +19,10 @@ nowhere; `clear()` empties it):
   * `setup_span(name)`: one-off set-up work (the package's import, a
     kernel's build or load, its first launch), always stored, and in the
     profiler's trace too where one records;
-  * `count(name, n)`: integer counters, always on.
+  * `count(name, n)`: integer counters, always on;
+  * `fold(read, clear)`: counters kept elsewhere (the kernels' section
+    counters on the card, `physics/cuda_kernel.py`), which `counters()`
+    folds into the store as `read()` gives them and `clear()` zeroes.
 
 A stored span is (name, parent, start_ns, end_ns), stamped by
 `time.perf_counter_ns()`: `parent` is the index in `spans()` of the
@@ -42,7 +45,14 @@ MAX_SPANS = 100_000
 _spans = []     # [name, parent, start_ns, end_ns] per stored span
 _open = []      # each open span's index (None: not stored), innermost last
 _counters = {}
+_folds = []     # (read, clear) of each source of folded counters
 _OFF = contextlib.nullcontext()
+
+
+def recording():
+    """Whether a `torch.profiler` session records: what turns per-step
+    spans and the kernels' section timers on."""
+    return _profiler_enabled()
 
 
 class _Span:
@@ -84,7 +94,7 @@ class _Span:
 def span(name):
     """`with span(name):` around per-step work; recorded only while a
     `torch.profiler` session records."""
-    return _Span(name, True) if _profiler_enabled() else _OFF
+    return _Span(name, True) if recording() else _OFF
 
 
 def setup_span(name, start_ns=None):
@@ -104,15 +114,28 @@ def spans():
     return [tuple(r) for r in _spans]
 
 
+def fold(read, clear):
+    """Fold a source of counters kept elsewhere into the store: `read()`
+    ({name: n}) on each call of `counters()`, `clear()` on `clear()`."""
+    _folds.append((read, clear))
+
+
 def counters():
-    return dict(_counters)
+    """The counters, the folded ones read now (one read per source)."""
+    out = dict(_counters)
+    for read, _ in _folds:
+        out.update(read())
+    return out
 
 
 def clear():
-    """Empty the store; a span still open is then stored nowhere."""
+    """Empty the store, and zero the folded counters where they are kept; a
+    span still open is then stored nowhere."""
     _spans.clear()
     _open[:] = [None] * len(_open)
     _counters.clear()
+    for _, zero in _folds:
+        zero()
 
 
 @contextlib.contextmanager

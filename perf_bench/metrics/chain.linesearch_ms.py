@@ -1,0 +1,8 @@
+"""ms of a launch of the cell's kernel in the `linesearch` section of its
+chain (per Newton step the Jd pass, the line search's iterations, the
+update of a): as `chain.smooth_ms`, whose `section_ms` this takes."""
+from perf_bench import core
+
+
+def read(data):
+    return core.metric_reader("chain.smooth_ms").section_ms(data, "linesearch")

@@ -11,10 +11,13 @@ scale). A wrong kernel is caught before any GPU time.
 
 Also checked: the build's content hash covers every header a kernel
 includes, so an edit to a shared header rebuilds every kernel that includes
-it.
+it; the host build's section counters (`k*_count_ops_sections`) cover the
+count and the plain version's rows; and a wrapper takes the timed launch
+only under `torch.profiler`, whose counters `profiling.counters()` folds.
 """
 
 import contextlib
+import ctypes
 import re
 import shutil
 import subprocess
@@ -32,7 +35,9 @@ from balance_robot_tpu_torch.physics import cuda_block, cuda_kernel
 from balance_robot_tpu_torch.physics import cuda_move, cuda_step
 from balance_robot_tpu_torch.physics import fast_solver, kernel_build
 from balance_robot_tpu_torch.physics import robot_core as rc
+from balance_robot_tpu_torch.physics import solver as sv
 from balance_robot_tpu_torch.physics import step as st
+from balance_robot_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 F64 = torch.float64
@@ -251,18 +256,19 @@ WRAPPERS = {
            (None, rc.ENV01_PARAMS), (("TEAM", 1), (1, "CROSSOVER")),
            13 * 65 + 44, ((1024, 4096),),
            {"k1_crossover", "k1_launch_config", "k1_count_ops",
-            "k1_count_ops_team_rows"}),
+            "k1_count_ops_team_rows", "k1_count_ops_sections"}),
     "K2": (cuda_block, "control_step14_cuda", (16, 14, 14, 2),
            (bs.ENV03_PARAMS,),
            (("TEAM", 1), ("MID_TEAM", "MID"), (8, "CROSSOVER")),
            19 * 121 + 119, ((1, 1023), (1024, 1792)),
            {"k2_crossover", "k2_mid_crossover", "k2_launch_config",
-            "k2_count_ops"}),
+            "k2_count_ops", "k2_count_ops_sections"}),
     "K3": (cuda_move, "control_step_walls_cuda", (9, 8, 8, 2),
            (MOVE05_PARAMS,), (("TEAM", 1), (1, "CROSSOVER")),
            13 * 273 + 44, ((512, 4096),),
            {"k3_crossover", "k3_launch_config", "k3_count_ops",
-            "k3_count_ops_team_rows", "k3_max_walls"}),
+            "k3_count_ops_team_rows", "k3_count_ops_sections",
+            "k3_max_walls"}),
 }
 
 
@@ -281,8 +287,9 @@ def header_rungs(kernel):
 def test_host_build_exports_the_c_interface_and_the_header_rungs(
         host_libs, kernel):
     """Each host build exports the same C entries as before the kernels
-    shared their launch code (the launches are nvcc's only), and its
-    crossovers, read from those entries, are the header's."""
+    shared their launch code (the launches and the loads are nvcc's only),
+    and the count by section, and its crossovers, read from those entries,
+    are the header's."""
     mod, *_, bounds, entries = WRAPPERS[kernel]
     so = host_libs[mod.LABEL]._name
     nm = shutil.which("nm")
@@ -399,3 +406,178 @@ def test_a_variant_build_has_its_own_library(tmp_path):
     assert other != so
     assert kernel_build.sources("control_step14.cu", tmp_path)[0] == \
         tmp_path / "control_step14.cu"
+
+
+# ------------------------------------------------------------ section counters
+
+def host_case(kernel):
+    """(count, plain, states, params) of the host tests' states of
+    `kernel`'s scene: count(states, params, **kw) runs its host build
+    (`count_ops`), plain(states, params, **kw) its plain version."""
+    rng = np.random.default_rng(int(kernel[1]))
+    if kernel == "K1":
+        qpos, qvel, ws, ctrl, _ = (torch.tensor(x) for x in
+                                   chip_smoke.random_states_np(rng, 6))
+        return (lambda s, p, **kw: cuda_step.count_ops(*s, None, p, **kw),
+                lambda s, p, **kw: cuda_step.control_step_plain(*s, None, p,
+                                                                **kw),
+                (qpos, qvel, ws, ctrl), rc.ENV01_PARAMS)
+    if kernel == "K2":
+        qpos, qvel, ctrl = (torch.tensor(x) for x in
+                            chip_smoke.random_states14(rng, 12))
+        return (lambda s, p, **kw: cuda_block.count_ops(*s, p, **kw),
+                lambda s, p, **kw: cuda_block.control_step14_plain(*s, p,
+                                                                   **kw),
+                (qpos, qvel, torch.zeros(12, 14, dtype=F64), ctrl),
+                bs.ENV03_PARAMS)
+    qpos, qvel, ctrl = (torch.tensor(x) for x in
+                        chip_smoke.random_states_walls(rng, 24))
+    return (lambda s, p, **kw: cuda_move.count_ops(*s, p, **kw),
+            lambda s, p, **kw: cuda_move.control_step_walls_plain(*s, p,
+                                                                  **kw),
+            (qpos, qvel, torch.zeros(24, 8, dtype=F64), ctrl), MOVE05_PARAMS)
+
+
+def host_sections(host_libs, kernel, states, params, **kw):
+    """(counts, {counter: n} per env) of `kernel`'s host build."""
+    count, *_ = host_case(kernel)
+    sections = []
+    counts, *_ = count(states, params, frame_skip=FRAME_SKIP,
+                       lib=host_libs[f"k{kernel[1]}"], sections=sections,
+                       **kw)
+    return counts, sections
+
+
+@pytest.mark.parametrize("kernel", sorted(WRAPPERS))
+def test_host_sections_sum_to_the_count(host_libs, kernel):
+    """The six sections' operations sum exactly to `k*_count_ops`' count,
+    each section does some of them, and the coupled Newton steps are K2's
+    `count_ops(coupled=[])` figure (none in K1 and K3)."""
+    count, _, states, params = host_case(kernel)
+    kw = {"coupled": []} if kernel == "K2" else {}
+    counts, *state = count(states, params, frame_skip=FRAME_SKIP,
+                           lib=host_libs[f"k{kernel[1]}"], **kw)
+    again, sections = host_sections(host_libs, kernel, states, params)
+    assert again == counts
+    for n, sec in zip(counts, sections):
+        assert sum(sec[s] for s in cuda_kernel.SECTIONS) == n
+        assert all(sec[s] > 0 for s in cuda_kernel.SECTIONS), sec
+    coupled = [sec["coupled"] for sec in sections]
+    assert coupled == kw.get("coupled", [0] * len(counts))
+    if kernel == "K2":
+        assert any(coupled) and not all(coupled)
+
+
+@pytest.mark.parametrize("kernel", sorted(WRAPPERS))
+def test_host_sections_without_contact(host_libs, kernel):
+    """States with the robot lifted 1 m clear of the floor (and of K3's
+    walls, at the corridor's centre) and K2's block far from both build no
+    row, and take the same operations in the Hessian and the line search
+    whatever their pose and velocities."""
+    _, _, states, params = host_case(kernel)
+    qpos = states[0][:3].clone()
+    qpos[:, 2] += 1.0
+    if kernel == "K3":
+        qpos[:, :2] = 0.0
+    if kernel == "K2":
+        qpos[:, 9:12] = torch.tensor([5.0, 5.0, 1.0], dtype=F64)
+    lifted = (qpos, *(t[:3] for t in states[1:]))
+    _, sections = host_sections(host_libs, kernel, lifted, params)
+    assert [sec["rows"] for sec in sections] == [0, 0, 0]
+    for name in ("hessian", "linesearch"):
+        assert len({sec[name] for sec in sections}) == 1, (name, sections)
+
+
+@pytest.mark.parametrize("kernel", sorted(WRAPPERS))
+def test_host_rows_are_the_plain_versions(host_libs, kernel, monkeypatch):
+    """The rows the host build counts over the substeps are those that
+    the plain version builds on the same states: its rows included, summed
+    over the substeps that its solver takes."""
+    _, plain, states, params = host_case(kernel)
+    built = []
+    newton = sv.solve_newton
+
+    def counting(a_init, a_smooth, M, rows, **kw):
+        built.append((rows.mask > 0).sum(-1))
+        return newton(a_init, a_smooth, M, rows, **kw)
+
+    monkeypatch.setattr(sv, "solve_newton", counting)
+    plain(states, params, frame_skip=FRAME_SKIP)
+    monkeypatch.undo()
+    assert len(built) == FRAME_SKIP
+    _, sections = host_sections(host_libs, kernel, states, params)
+    rows = [sec["rows"] for sec in sections]
+    assert rows == torch.stack(built).sum(0).tolist()
+    assert max(rows) > 0
+
+
+@pytest.mark.parametrize("kernel", sorted(WRAPPERS))
+def test_the_timed_launch_runs_only_under_the_profiler(monkeypatch, kernel):
+    """A wrapper launches the rung's timed entry, with the int64 counters of
+    its batch size, only while a `torch.profiler` session records, and the
+    untimed entry otherwise; `profiling.counters()` folds what the timed
+    launches left in the counters (a fake library's launch writes them),
+    and `profiling.clear()` zeroes them."""
+    mod, launch, widths, scene, *_ = WRAPPERS[kernel]
+    B, n = 3, len(cuda_kernel.COUNTERS)
+    launched = []
+
+    def untimed(*args):
+        launched.append("untimed")
+        return 0
+
+    def timed(*args):
+        # env i: i + 1 cycles in each section, 4 rows, one launch
+        launched.append("timed")
+        row = (ctypes.c_longlong * (B * n)).from_address(args[-3])
+        for i in range(B):
+            for s in range(len(cuda_kernel.SECTIONS)):
+                row[n * i + s] += i + 1
+            row[n * i + cuda_kernel.COUNTERS.index("rows")] += 4
+            row[n * i + cuda_kernel.COUNTERS.index("launches")] += 1
+        return 0
+
+    class Lib:
+        """A fake library: its launches record and count; one lane."""
+        def __getattr__(self, name):
+            return {f"{mod.LABEL}_control_step_f32": untimed,
+                    f"{mod.LABEL}_control_step_timed_f32": timed}[name]
+
+    monkeypatch.setattr(mod.KERNEL, "lib", Lib())
+    monkeypatch.setattr(mod.KERNEL, "launch_config",
+                        lambda dtype, B, lib=None: (1, 32, 0))
+    monkeypatch.setattr(mod.KERNEL, "_counters", {})
+    monkeypatch.setattr(mod.KERNEL, "launches", 0)
+    monkeypatch.setattr(mod.KERNEL, "launches_by_team", {})
+    monkeypatch.setattr(cuda_kernel, "check_kernel_args", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    profiling.clear()
+
+    def step():
+        getattr(mod, launch)(*(torch.zeros(B, w) for w in widths), *scene)
+
+    step()
+    # under inference mode, as the evals run: the counters can still be
+    # zeroed outside it
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]), \
+            torch.inference_mode():
+        step()
+        step()
+    step()
+    assert launched == ["untimed", "timed", "timed", "untimed"]
+    assert mod.KERNEL.launches == 4
+    label = mod.LABEL
+    found = profiling.counters()
+    assert {k: v for k, v in found.items() if k.startswith(label)} == {
+        **{f"{label}.cycles.{s}": 2 * (1 + 2 + 3)
+           for s in cuda_kernel.SECTIONS},
+        f"{label}.cycles.slowest_env": 2 * 3 * len(cuda_kernel.SECTIONS),
+        f"{label}.envs": B, f"{label}.rows": 2 * 4 * B,
+        f"{label}.coupled_steps": 0, f"{label}.timed_launches": 2}
+    profiling.clear()
+    assert not any(k.startswith(label) for k in profiling.counters())
+    assert mod.KERNEL.sections() is None

@@ -482,6 +482,91 @@ def test_k3_matches_plain_on_the_card():
               [float(d[kind == i].max()) for i in range(6)])
 
 
+def section_states(kernel, B):
+    """chip_smoke.py's float64 states of `kernel`'s scene in every contact
+    regime, as CPU tensors (qpos, qvel, ws, ctrl)."""
+    import numpy as np
+    import chip_smoke
+    rng = np.random.default_rng(7)
+    if kernel == "K1":
+        return tuple(torch.tensor(x) for x in
+                     chip_smoke.random_states_np(rng, B)[:4])
+    make = {"K2": chip_smoke.random_states14,
+            "K3": chip_smoke.random_states_walls}[kernel]
+    qpos, qvel, ctrl = (torch.tensor(x) for x in make(rng, B))
+    return qpos, qvel, torch.zeros_like(qvel), ctrl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+def test_section_timers_on_the_card(kernel):
+    """The section timers at B = 1, at each crossover - 1 and at 4096: a
+    launch under `torch.profiler` (the timed instantiation) gives the bits
+    of one without (the untimed), in float32 and float64; the rows that the
+    float64 launch counts are the host build's on the same states (32
+    envs); and the slowest env's summed cycles, over the SM clock that
+    nvidia-smi reads while the float32 launches run, lie within 10% of a
+    launch's CUDA-event time where the launch takes one wave: the six
+    sections cover the chain. A launch of more waves than one (K2's team
+    of 8 at 4096: its shared rows leave 5 blocks per SM) lasts longer than
+    any one env's chain, but not `waves` times longer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc to build the kernel)")
+    import numpy as np
+    import chip_smoke
+    from balance_robot_tpu_torch.utils import profiling
+    mod, launch, _, scene = KERNELS[kernel]
+    K = mod.KERNEL
+    cpu_only = [torch.profiler.ProfilerActivity.CPU]
+    rows_at = cuda_kernel.COUNTERS.index("rows")
+
+    def step(args):
+        return getattr(mod, launch)(*args, *scene)
+
+    for B in sorted({1, 4096} | {x - 1 for x in K.crossovers()}):
+        states = section_states(kernel, B)
+        for dtype in (torch.float32, torch.float64):
+            args = [t.to("cuda", dtype) for t in states]
+            K.clear_sections()
+            untimed = step(args)
+            assert not profiling.recording()
+            with torch.profiler.profile(activities=cpu_only):
+                timed = step(args)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(untimed, timed)), \
+                (B, dtype)
+        sample = torch.linspace(0, B - 1, min(B, 32)).long().unique()
+        host = []
+        mod.count_ops(*(t[sample] for t in states), *scene, sections=host)
+        assert K.section_rows()[B][sample, rows_at].tolist() == [
+            h["rows"] for h in host], B
+        args = [t.to("cuda", torch.float32) for t in states]
+        K.clear_sections()
+        with torch.profiler.profile(activities=cpu_only):
+            once = chip_smoke.time_kernel(lambda: step(args))
+            n = max(5, int(np.ceil(400.0 / once)))
+            events = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(n + 1)]
+            events[0].record()
+            for e in events[1:]:
+                step(args)
+                e.record()
+            mhz = float(chip_smoke.nvidia_smi("clocks.sm",
+                                              "csv,noheader,nounits"))
+            torch.cuda.synchronize()
+        found = K.sections()
+        assert found["launches"] == chip_smoke.TIMED_LAUNCHES + n
+        ms = float(np.median([a.elapsed_time(b)
+                              for a, b in zip(events, events[1:])]))
+        slowest = sum(found["slowest_env"][s] for s in cuda_kernel.SECTIONS)
+        covered = slowest / found["launches"] / (mhz * 1e3) / ms
+        waves = K.waves(torch.float32, B)
+        print(f"{kernel} B={B}: {ms:.3f} ms per launch ({waves} waves), the "
+              f"slowest env's sections {covered:.3f} of it at {mhz:.0f} MHz")
+        assert 1.0 / waves - 0.1 <= covered <= 1.1, (B, waves, covered)
+        assert waves > 1 or covered >= 0.9, (B, covered)
+
+
 def use_checked_build(monkeypatch, mod):
     """Launch the checked build (-DBRT_CHECK_ROWS) of `mod`'s kernel for the
     rest of the test; print its ptxas resources."""

@@ -3,7 +3,7 @@ turns, in one process on one GPU.
 
     python tools/time_kernels.py [--variant K2:BRT_K2_TEAM=8 ...]
                                  [--old-csrc DIR] [--only K1 ...]
-                                 [--rounds 2] [--out FILE]
+                                 [--rounds 2] [--out FILE] [--sections]
 
 Builds K1 (`csrc/control_step.cu`), K2 (`csrc/control_step14.cu`) and K3
 (`csrc/control_step_walls.cu`) as they are, once more for each --variant KERNEL:NAME=VALUE[:NAME=VALUE...] with those macros
@@ -52,6 +52,22 @@ turns (a, b, ..., b, a), --rounds times, each time the median of
 chip_smoke.TIMED_LAUNCHES launches by CUDA events, and each build's
 outputs are compared with the default build's. Prints one line per build
 and case and writes everything as JSON to --out.
+
+With --sections it times no other build: it reads where the default
+build's launches spend their time, by the section counters of the chain
+(`csrc/robot_common.cuh`, taken by the timed instantiation under a
+`torch.profiler` session), on K1 at B = 256 and 4096, K2 at B = 1 and 512
+on the main path's and on the impact states, and K3 at 512 and 4096, each
+at the fast and the exact grade. Per case: the untimed and the timed
+launch's median (in turns, untimed, timed, timed, untimed), its waves
+(`Kernel.waves`), the SM clock that nvidia-smi reads while timed launches
+run, the slowest env's summed cycles over a launch's time at that clock
+(the sections' cover of a one-wave launch), the slowest env's over the
+mean env's (imbalance), the rows per substep and the share of Newton
+steps that took K2's coupled 14 x 14 factorization; per section its ms
+(the timed median x its share of the summed cycles), that share, the host
+build's operations per env (16 envs spread over the batch, in double) and
+the cycles per operation on those envs.
 """
 import argparse
 import json
@@ -171,6 +187,72 @@ def launch_shapes(kernel, lib, dtype):
             for B in [1] + kernel.crossovers(lib)}
 
 
+def time_sections(mod, fn, args, extra, frame_skip=250):
+    """The --sections report of one case (see above): a dict, printed by
+    `print_sections`."""
+    from balance_robot_tpu_torch.physics.cuda_kernel import COUNTERS, SECTIONS
+    K, B = mod.KERNEL, args[0].shape[0]
+    cpu_only = [torch.profiler.ProfilerActivity.CPU]
+
+    def run():
+        return fn(*args, *extra)
+
+    K.clear_sections()
+    times = {"untimed": [], "timed": []}
+    for kind in ("untimed", "timed", "timed", "untimed"):
+        if kind == "timed":
+            with torch.profiler.profile(activities=cpu_only):
+                times[kind].append(chip_smoke.time_kernel(run))
+        else:
+            times[kind].append(chip_smoke.time_kernel(run))
+    timed_ms = float(np.median(times["timed"]))
+    with torch.profiler.profile(activities=cpu_only):
+        for _ in range(max(3, int(np.ceil(400.0 / timed_ms)))):
+            run()
+        mhz = float(chip_smoke.nvidia_smi("clocks.sm",
+                                          "csv,noheader,nounits"))
+        torch.cuda.synchronize()
+    rows = K.section_rows()[B].double()
+    launches = float(rows[0, COUNTERS.index("launches")])
+    cycles = rows[:, :len(SECTIONS)]
+    per_env = cycles.sum(1)
+    sample = torch.linspace(0, B - 1, min(B, 16)).long().unique()
+    host = []
+    mod.count_ops(*(t[sample] for t in args), *extra, sections=host)
+    substeps = B * launches * frame_skip
+    params = extra[-1]
+    res = dict(
+        untimed_ms=times["untimed"], timed_ms=times["timed"], sm_mhz=mhz,
+        waves=K.waves(args[0].dtype, B),
+        cover=float(per_env.max()) / launches / (mhz * 1e3) / timed_ms,
+        imbalance=float(per_env.max() / per_env.mean()),
+        rows_per_substep=float(rows[:, COUNTERS.index("rows")].sum())
+        / substeps,
+        coupled_share=float(rows[:, COUNTERS.index("coupled")].sum())
+        / (substeps * params.newton_iters), sections={})
+    for j, name in enumerate(SECTIONS):
+        share = float(cycles[:, j].sum() / cycles.sum())
+        ops = float(np.mean([h[name] for h in host]))
+        res["sections"][name] = dict(
+            ms=timed_ms * share, share=share, host_ops_per_env=ops,
+            cycles_per_op=float(cycles[sample, j].mean()) / launches / ops)
+    return res
+
+
+def print_sections(case, r):
+    u, t = np.median(r["untimed_ms"]), np.median(r["timed_ms"])
+    print(f"{case}: untimed {u:.3f} ms, timed {t:.3f} ms "
+          f"({100 * (t / u - 1):+.2f}%), {r['waves']} waves, SM "
+          f"{r['sm_mhz']:.0f} MHz, slowest env {r['cover']:.3f} of a "
+          f"launch, imbalance {r['imbalance']:.3f}, rows per substep "
+          f"{r['rows_per_substep']:.2f}, coupled "
+          f"{100 * r['coupled_share']:.2f}%")
+    for name, sec in r["sections"].items():
+        print(f"  {name}: {sec['ms']:.3f} ms, {100 * sec['share']:.1f}%, "
+              f"{sec['host_ops_per_env']:.0f} host ops per env, "
+              f"{sec['cycles_per_op']:.2f} cycles per op")
+
+
 def with_lib(kernel, lib, fn):
     """Call fn() with `lib` as the kernel's library."""
     saved, kernel.lib = kernel.lib, lib
@@ -192,7 +274,12 @@ def main():
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--out", type=pathlib.Path,
                     default=pathlib.Path("build/time_kernels.json"))
+    ap.add_argument("--sections", action="store_true",
+                    help="where the default build's launches spend their "
+                         "time, by section of the chain (see above)")
     opts = ap.parse_args()
+    if opts.sections and (opts.variant or opts.old_csrc):
+        ap.error("--sections times the default build only")
     chip_smoke.check(torch.cuda.is_available(), "this script needs a GPU")
     card = chip_smoke.nvidia_smi("name,power.limit")
     print(card)
@@ -266,7 +353,7 @@ def main():
             crossovers = kernels[kernel][0].KERNEL.crossovers()
             return {1, 4096} | {x - 1 for x in crossovers}
 
-        cases = []
+        cases, section_cases = [], []
         if "K1" in kernels:
             env01, s01, _ = main_path_inputs(brt, "Env01-v2",
                                              chip_smoke.POLICY, gen_for("K1"))
@@ -275,6 +362,11 @@ def main():
                                             ("exact", rc.ENV01_PARAMS))
                       for B in sorted({256, 512, 1024, 1536, 2048, 2176,
                                        3072} | edges("K1"))]
+            section_cases += [("K1", B, grade, s01, (None, params))
+                              for grade, params in (("fast", env01.params),
+                                                    ("exact",
+                                                     rc.ENV01_PARAMS))
+                              for B in (256, 4096)]
         if "K2" in kernels:
             env03, s03, s03_first = main_path_inputs(
                 brt, "Env03-v2", chip_smoke.POLICY03, gen_for("K2"))
@@ -298,6 +390,10 @@ def main():
                       ("K2", 512, "fast impact", impact, (env03.params,)),
                       ("K2", 4096, "fast first-step", s03_first,
                        (env03.params,))]
+            section_cases += [("K2", B, grade + kind, states, grades[grade])
+                              for kind, states in (("", s03),
+                                                   (" impact", impact))
+                              for grade in grades for B in (1, 512)]
         if "K3" in kernels:
             env_move, smove, _ = main_path_inputs(
                 brt, "EnvMove05-v1", chip_smoke.POLICY_MOVE, gen_for("K3"))
@@ -309,13 +405,25 @@ def main():
             cases += [("K3", 512, "exact", smove, (MOVE05_PARAMS,)),
                       ("K3", 4096, "fast at-wall", at_wall, fast),
                       ("K3", 512, "fast at-wall", at_wall, fast)]
+            section_cases += [("K3", B, grade, smove, extra)
+                              for grade, extra in (("fast", fast),
+                                                   ("exact",
+                                                    (MOVE05_PARAMS,)))
+                              for B in (512, 4096)]
             # phase 3c's float32 K3 checks, held per kind to both plain
             # versions
             X3, = cuda_move.KERNEL.crossovers()
             check3 = chip_smoke.check_states(X3)["K3"]
             cases += [("K3", B, "fast phase-3c", on_card(draws[2]), fast)
                       for B, draws in check3.items()]
-        for k, B, grade, states, extra in cases:
+        for k, B, grade, states, extra in (section_cases if opts.sections
+                                           else []):
+            mod, fn = kernels[k]
+            case = f"{k} B={B} {grade}"
+            report["cases"][case] = time_sections(
+                mod, fn, tuple(t[:B].contiguous() for t in states), extra)
+            print_sections(case, report["cases"][case])
+        for k, B, grade, states, extra in ([] if opts.sections else cases):
             mod, fn = kernels[k]
             args = tuple(t[:B].contiguous() for t in states) + extra
             names = [b for (kk, b) in libs if kk == k]
@@ -359,7 +467,8 @@ def main():
         paths = (("K1", "Env01-v2", chip_smoke.POLICY),
                  ("K2", "Env03-v2", chip_smoke.POLICY03),
                  ("K3", "EnvMove05-v1", chip_smoke.POLICY_MOVE))
-        for k, env_id, path in (x for x in paths if x[0] in kernels):
+        for k, env_id, path in (x for x in paths if x[0] in kernels
+                                and not opts.sections):
             mod = kernels[k][0]
             names = [b for (kk, b) in libs if kk == k]
             secs = {b: [] for b in names}
@@ -382,7 +491,8 @@ def main():
                       "(median over readings): "
                       + " ".join(f"{x:.0f}"
                                  for x in np.median(steps[b], axis=0)))
-        names = [b for b in ("default", "old") if ("K3", b) in libs]
+        names = [b for b in ("default", "old") if ("K3", b) in libs
+                 and not opts.sections]
         for grade in ("fast", "exact") if names else ():
             res = {b: [] for b in names}
             for b in names + names[::-1]:
