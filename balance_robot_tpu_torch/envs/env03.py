@@ -18,6 +18,13 @@ uniforms per env of a block launch (direction, 2 of aim, 3 of
 orientation), drawn every step and used where a block fires.
 `step(..., uniforms=...)` takes them explicitly (B, 6) instead, so a caller
 can replay another stream.
+
+Tracing (`utils/profiling`, only while a `torch.profiler` session
+records): `step` lies in the span `env03.step`, the park and fire events
+in `env03.events` inside it, and a tally on the envs' device adds each
+step's block launches and env-steps, folded into `profiling.counters()`
+as `env03.block_launches` and `env03.env_steps`. Without a profiler
+nothing is recorded and nothing waits for the device.
 """
 
 import torch
@@ -25,6 +32,8 @@ import torch
 from ..physics import block_step as bs
 from ..physics.block_step import PhysState14
 from ..physics.cuda_block import control_step14
+from ..utils import profiling
+from ..utils.profiling import span
 from . import base
 from .base import (EnvState, WHEEL_SPEED_DELTA_MAX, TERMINATE_PITCH,
                    pitch_of, yaw_of, scipy_euler_to_mj_quat_scrambled)
@@ -35,6 +44,39 @@ SPAWN_RADIUS = 0.3
 # the reference writes the spawn height as a float32 constant, so in
 # float64 it is float32(0.15), not 0.15
 SPAWN_Z = torch.tensor(0.15, dtype=torch.float32).item()
+
+# per device: int64 (block launches, env-steps) of the steps traced since
+# the store was last cleared
+_tally = {}
+
+
+def _count_launches(fire):
+    """Add a step's launches and env-steps to the tally of its device."""
+    t = _tally.get(fire.device)
+    if t is None:
+        # a normal tensor even under inference mode, so that clear may
+        # zero it outside
+        with torch.inference_mode(False):
+            t = _tally[fire.device] = torch.zeros(2, dtype=torch.int64,
+                                                  device=fire.device)
+    t[0] += fire.sum()
+    t[1] += fire.numel()
+
+
+def _tally_read():
+    if not _tally:
+        return {}
+    launches, steps = (int(x) for x in sum(
+        t.cpu() for t in _tally.values()))
+    return {"env03.block_launches": launches, "env03.env_steps": steps}
+
+
+def _tally_clear():
+    for t in _tally.values():
+        t.zero_()
+
+
+profiling.fold(_tally_read, _tally_clear)
 
 
 class Env03V1(Env01V1):
@@ -202,6 +244,8 @@ class Env03V1(Env01V1):
         # 2) respawn after the delay; a launch changes the block's pose and
         # linear velocity and nothing else
         fire = started & ((t - t0) > self.block_delay)
+        if profiling.recording():
+            _count_launches(fire)
         sq, sv = self._spawn_block(state, u)
         f = fire.unsqueeze(-1)
         return state._replace(
@@ -221,29 +265,31 @@ class Env03V1(Env01V1):
 
         action (B, 2) in [-1, 1]; uniforms (B, 6) replaces the launch draws.
         Returns (state, obs float32, reward, terminated, truncated)."""
-        n = action.shape[0]
-        u = self._uniform(n, 6) if uniforms is None else uniforms.to(
-            self.device, self.dtype)
-        noise = self._noise(n, 4)
-        state = self._update_targets(state)
-        # 1) reward from the pre-step state
-        reward = self._reward(state, noise[:, 0])
-        # 2) 250 substeps of the 14-dof scene at constant ctrl
-        ctrl = self._ctrl(state, action.to(self.device, self.dtype))
-        phys = PhysState14(*control_step14(
-            state.phys.qpos, state.phys.qvel, state.phys.warmstart, ctrl,
-            self.params))
-        state = state._replace(phys=phys, t=state.t + 1)
-        # 3) block events on the post-step state and time
-        state = self._events(state, u)
-        # 4) terminate at |pitch| > 50 deg
-        terminated = self._pitch(state, state.phys.qpos, noise[:, 1]).abs() \
-            > TERMINATE_PITCH
-        state = self._post_terminate(state, terminated)
-        # 5) obs from the post-step state
-        state, obs = self._obs(state, noise[:, 2:])
-        truncated = state.t >= self.max_episode_steps
-        return state, obs, reward, terminated, truncated
+        with span("env03.step"):
+            n = action.shape[0]
+            u = self._uniform(n, 6) if uniforms is None else uniforms.to(
+                self.device, self.dtype)
+            noise = self._noise(n, 4)
+            state = self._update_targets(state)
+            # 1) reward from the pre-step state
+            reward = self._reward(state, noise[:, 0])
+            # 2) 250 substeps of the 14-dof scene at constant ctrl
+            ctrl = self._ctrl(state, action.to(self.device, self.dtype))
+            phys = PhysState14(*control_step14(
+                state.phys.qpos, state.phys.qvel, state.phys.warmstart, ctrl,
+                self.params))
+            state = state._replace(phys=phys, t=state.t + 1)
+            # 3) block events on the post-step state and time
+            with span("env03.events"):
+                state = self._events(state, u)
+            # 4) terminate at |pitch| > 50 deg
+            terminated = self._pitch(state, state.phys.qpos,
+                                     noise[:, 1]).abs() > TERMINATE_PITCH
+            state = self._post_terminate(state, terminated)
+            # 5) obs from the post-step state
+            state, obs = self._obs(state, noise[:, 2:])
+            truncated = state.t >= self.max_episode_steps
+            return state, obs, reward, terminated, truncated
 
 
 class Env03V2(Env03V1):
