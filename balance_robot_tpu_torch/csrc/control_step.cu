@@ -26,9 +26,11 @@
 //   row adds exact zeros to the cost, the gradient, the Hessian and the
 //   forces, so leaving it out changes no result. A robot standing on its
 //   wheels has 2-8 contacts, 8-32 rows.
-// - Every lane computes the fk/CRB/RNE, the 16 candidates and the 8x8
-//   factorizations; candidate c is emitted by lane c mod G at the slot its
-//   included predecessors leave.
+// - Every lane computes the fk/CRB/RNE, the 16 candidates and M's 8x8
+//   factorization; candidate c is emitted by lane c mod G at the slot its
+//   included predecessors leave. The team shares the Newton H's 8x8
+//   factorization and solves out, a row per lane (team_factor_solve in
+//   robot_common.cuh), with the serial code's bits.
 //
 // Two instantiations of the one source, chosen by batch size in the
 // wrapper (cuda_step.py), which reads the choice from k1_launch_config:
@@ -71,21 +73,22 @@
 // 84.7 and 207.7 ms at 4096, fast.
 //
 // What bounds it on an H100: the latency of each env's serial chain (the
-// robot dynamics and the small factorizations stay serial on every lane);
+// robot dynamics and M's factorization stay serial on every lane);
 // the operations are 1-2.5% of the card's fp32 peak in that time and the
 // bytes moved ~100 per env per control step.
 //
 // ptxas (-Xptxas -v, nvcc 12.8, sm_90a): team of 32, float: 128
-// registers, 640 bytes stack frame, 448 bytes spill stores, 1,576 bytes
-// spill loads; double: 128 registers, 2,000 bytes stack frame, 2,304 /
-// 6,556 bytes spilled. One lane, float: 211 registers, 3,360 bytes stack
+// registers, 624 bytes stack frame, 404 bytes spill stores, 1,356 bytes
+// spill loads (640, 448 / 1,576 before the team shared the Newton
+// factorization); double: 128 registers, 2,080 bytes stack frame, 2,392 /
+// 6,108 bytes spilled (2,000, 2,304 / 6,556). One lane, float: 211 registers, 3,360 bytes stack
 // frame (3,072 of it the rows), no spills; double: 255 registers, 7,184
 // bytes stack frame, 856 / 3,232 bytes spilled.
 //
 // Each rung also has a timed instantiation (TIMED; robot_common.cuh's
 // section counters), which only a launch under torch.profiler takes: the
 // same arithmetic and bits, 15 clock reads per fast substep; float: team
-// 128 registers, 656 bytes stack, 468 / 1,592 spilled; one lane 214
+// 128 registers, 640 bytes stack, 412 / 1,368 spilled; one lane 214
 // registers, no spills. Where its chain spends its time: PERF.md.
 //
 // The same templated code also runs on the host with `Counted`, a double

@@ -53,16 +53,23 @@
 //   the oracle's replay at F gives what its generations scored at F x 128.
 // - M is block-diagonal, and so is the Newton H while no chassis-block or
 //   wheel-block row (the rows from `couple_row` on) is active: then H is
-//   factorized as 8x8 and 6x6, unrolled in registers, which gives the
-//   bits of the 14x14 factorization (its off-block entries are exact
-//   zeros). When one is active (the block touching the robot) every lane
-//   factorizes the full 14x14 H, unrolled in registers.
+//   factorized as 8x8 and 6x6, which gives the bits of the 14x14
+//   factorization (its off-block entries are exact zeros); when one is
+//   active (the block touching the robot), as the full 14x14. The team
+//   shares either out (team_factor_solve in robot_common.cuh): lane r mod
+//   G owns row r of the factor (a team of 8: two rows per lane), loads it
+//   from the H scratch at once and keeps it in registers; per column the
+//   diagonal's owner takes the square root, a shuffle gives it to the
+//   team and each lane divides its own entry, in the serial code's order,
+//   so the same bits. The 8x8 and the 6x6 run side by side on their own
+//   lanes, as the 14x14's first 8 columns: the envs of a warp that take
+//   both run one code path, the coupled ones 6 columns longer.
 //
 // Three instantiations of the one source, chosen by batch size in the
 // wrapper (cuda_block.py), which reads the choice from k2_launch_config.
 // Each takes the widest team whose warps fit one per scheduler (4 per SM on
 // 132 SMs); from there on a wider team's redundant serial work (fk, CRB,
-// RNE and the factorizations on every lane) queues at the schedulers:
+// RNE and M's factor on every lane) queues at the schedulers:
 // - below MID envs (the evals at 512, cli test at B = 1), a team of TEAM =
 //   32 lanes, one env per warp: the row loops and the Hessian's entries
 //   split 32 ways, and no env waits on another's path (its row count,
@@ -74,9 +81,9 @@
 //   team of MAIN_TEAM = 8 lanes, 4 envs per warp, 38.7 KB of rows per block
 //   in float (5 blocks per SM), where 32 lanes would take several waves.
 // What bounds it on an H100: the latency of each env's serial chain, not
-// operations or bytes. The fk/CRB/RNE, the colliders and the small
-// factorizations are one long dependent chain of scalar float math on
-// every lane (no matrix product for the tensor cores, and float32 physics
+// operations or bytes. The fk/CRB/RNE, the colliders and the Newton
+// factorization's columns are one long dependent chain of scalar float
+// math (no matrix product for the tensor cores, and float32 physics
 // rules out TF32); about 240 bytes per env per control step cross device
 // memory. 255 registers a thread leave 8 one-warp blocks per SM. Timed in
 // turns on an H100 80GB HBM3 at 700 W
@@ -97,18 +104,22 @@
 // lanes 17.20 / 17.87 / 18.30. Capping registers at 168 or 128 made the float kernel
 // spill 4-6x as much and lost more than the extra warps won.
 //
-// ptxas (-Xptxas -v, nvcc 12.8, sm_90a), 255 registers for every kernel:
-// float, 32 lanes: 1,712 bytes stack frame, 400 / 1,340 bytes spill
-// stores / loads; float, 8 lanes: 1,760, 472 / 1,492; double, 32 lanes:
-// 4,448, 3,320 / 8,952; double, 8 lanes: 4,560, 3,496 / 9,140; 16 lanes:
-// float 1,712, 368 / 1,088, double 4,512, 3,444 / 9,096 (the
-// one-team design before: float 2,208, 532 / 1,616, the collider
-// candidates indexed by lane; double 5,344, 3,676 / 9,600).
+// ptxas (-Xptxas -v, nvcc 12.8, sm_90a), 255 registers for every kernel,
+// stack frame, spill stores / loads in bytes: float, 32 lanes 1,696, 268
+// / 432; 16 lanes 1,696, 276 / 436; 8 lanes 1,696, 380 / 1,208; double,
+// 32 lanes 4,400, 4,432 / 8,720; 16 lanes 4,416, 5,248 / 10,084; 8 lanes
+// 4,368, 3,340 / 7,564. With every lane factorizing the whole H (before
+// the team shared it): float 1,712, 400 / 1,340; 1,712, 368 / 1,088;
+// 1,760, 472 / 1,492; double 4,448, 3,320 / 8,952; 4,512, 3,444 / 9,096;
+// 4,560, 3,496 / 9,140. Shared out, the factorization and its solves take
+// ~35% less time at B = 1, 16-19% less at 512 and 1,024, 17-32% less on
+// impact states, and the team of 8 (two rows per lane) 2-6% more at 1,792
+// to 4096 on the main path's calm states (in turns; PERF.md).
 //
 // Each rung also has a timed instantiation (TIMED; robot_common.cuh's
 // section counters), which only a launch under torch.profiler takes: the
 // same arithmetic and bits; float, 32 lanes: the same ptxas line; 16
-// lanes 1,744, 440 / 1,336; 8 lanes 1,792, 548 / 1,596. Where its chain
+// lanes 1,728, 344 / 588; 8 lanes 1,744, 464 / 1,436. Where its chain
 // spends its time: PERF.md.
 //
 // The same templated code also runs on the host with `Counted` and a team

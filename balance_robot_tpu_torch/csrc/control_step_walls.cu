@@ -62,8 +62,8 @@
 //   every shuffle and warp sync compiles out, and on that store team_solve
 //   takes each row's Hessian, gradient and force in one pass from J in
 //   registers, as the one-thread design before did. A team there would
-//   run the serial parts (fk, CRB, RNE, colliders, the small
-//   factorizations) once per lane on a card that one thread per env
+//   run the serial parts (fk, CRB, RNE, the floor colliders, M's
+//   factorization) once per lane on a card that one thread per env
 //   already fills: one thread per env takes ~17.4 ms at any batch up to
 //   one warp per SM (4,224 envs).
 // The crossover is where the 32-lane team stops fitting one wave: 255
@@ -85,17 +85,18 @@
 // device memory.
 //
 // ptxas (-Xptxas -v, nvcc 12.8, sm_90a), 255 registers for every kernel:
-// float, 32 lanes: 2,160 bytes stack frame, 296 / 1,140 bytes spill
-// stores / loads; float, one lane: 15,120 bytes stack frame (13,056 of it
-// the rows), 240 / 828 spilled; double, 32 lanes: 5,328, 1,996 / 5,800;
+// float, 32 lanes: 2,176 bytes stack frame, 312 / 1,200 bytes spill
+// stores / loads (2,160, 296 / 1,140 before the team shared the Newton
+// factorization); float, one lane: 15,120 bytes stack frame (13,056 of it
+// the rows), 240 / 828 spilled; double, 32 lanes: 5,360, 2,096 / 5,984;
 // double, one lane: 31,184, 1,928 / 6,280 (the one-thread design before:
 // float 14,736 bytes stack, 360 / 1,276 spilled; double 30,400, 2,140 /
 // 6,716).
 //
 // Each rung also has a timed instantiation (TIMED; robot_common.cuh's
 // section counters), which only a launch under torch.profiler takes: the
-// same arithmetic and bits; float, 32 lanes 2,176 bytes stack, 336 /
-// 1,168 spilled; one lane 15,120, 248 / 836. Where its chain spends its
+// same arithmetic and bits; float, 32 lanes 2,192 bytes stack, 352 /
+// 1,228 spilled; one lane 15,120, 248 / 836. Where its chain spends its
 // time: PERF.md.
 //
 // The same templated code also runs on the host with `Counted` and a team

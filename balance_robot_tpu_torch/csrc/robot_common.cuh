@@ -17,8 +17,9 @@
 // implicitfast velocity update): team_solve, for a team of G lanes of one
 // warp per env, rows in TeamRows (shared memory) or, for one lane per env,
 // LaneRows (the thread's local array), row loops split over the lanes with
-// shuffle sums, the Newton Hessian and gradient split by entry, and M's and
-// H's block structure used for K2's 14 dofs (K1, K2, K3). What bounds it is the
+// shuffle sums, the Newton Hessian and gradient split by entry, its
+// factorization and solves by row (team_factor_solve), and M's and H's
+// block structure used for K2's 14 dofs (K1, K2, K3). What bounds it is the
 // serial chain that stays on every lane: each kernel's note gives its
 // figures. The section counters say where that chain spends its time.
 
@@ -700,10 +701,11 @@ BRT_HD void robot_neg_jac(const T cpos[3], int body, const T n[3],
 // A team of G lanes (G a power of two <= 32, inside one warp) works on one
 // env. Sums over rows are taken by a butterfly of __shfl_xor_sync on the
 // team's mask; a^b == b^a, so every lane ends with the same bits, and the
-// parts that stay serial (fk, CRB, RNE, the small factorizations) run
-// redundantly on every lane and agree bit for bit. With G = 1 (the host's
-// `*_count_ops` builds, and K3's kernel for large batches) every team call
-// is the identity.
+// parts that stay serial (fk, CRB, RNE, M's factor) run redundantly on
+// every lane and agree bit for bit; the Newton factorization is shared
+// out by row, each value shuffled from the lane that owns it. With G = 1
+// (the host's `*_count_ops` builds, and K1's and K3's kernels for large
+// batches) every team call is the identity.
 // A team may take its row sums as a team of W lanes would (W a multiple of
 // G): row r adds to the partial of virtual lane r mod W, each lane holds
 // V = W / G of them, and `vsum` runs W's butterfly, its steps across a
@@ -763,6 +765,14 @@ struct Team {
 #else
     return b;
 #endif
+  }
+  // v of the team's lane `src`, on every lane.
+  template <typename T>
+  BRT_HD T bcast(T v, int src) const {
+#ifdef __CUDA_ARCH__
+    if constexpr (G > 1) return __shfl_sync(mask, v, src, G);
+#endif
+    return v;
   }
   BRT_HD void sync() const {
 #ifdef __CUDA_ARCH__
@@ -910,6 +920,168 @@ BRT_HD void factor_solve_split(const F& H, const T ng[NV], T step[NV]) {
   }
 }
 
+// c - a b rounded once: the fused multiply-add that the serial code's
+// c - a * b compiles to on the card, written out so that the team's
+// products, whose operands come through shuffles and selects, take it too
+// (left to the compiler, some were not fused, and the bits moved).
+template <typename T>
+BRT_HD T fms(T a, T b, T c) {
+#ifdef __CUDA_ARCH__
+  return fma(-a, b, c);
+#else
+  return c - a * b;
+#endif
+}
+
+// The same step = H^-1 ng on a team of G > 1 lanes, for team_solve's H on
+// TeamRows (H(r, c) = Mr[r][c] or the block's mb, Ib, plus the H scratch's
+// entry), shared out over the lanes: lane r mod G owns row r (its slot r /
+// G), loads that row of H at once and keeps only it and, from its
+// diagonal's turn on, the column of L under that diagonal. Column by column:
+// the owner of the diagonal takes its square root, which a shuffle gives to
+// the team, each lane divides its row's entry of the column by it and
+// subtracts the column's products from the rest of its row; the forward
+// solve's right-hand side rides along as one more entry of each row. Then
+// the back solve, a row at a time, each x shuffled to every lane. Every
+// entry takes chol_factor_by's and chol_solve's operations in their order
+// (H(i, j) less L[i][k] L[j][k] for k = 0, 1, ..., then the root or the
+// division), so the serial code's bits. When `split` (NV = 8, or no
+// robot-block row active), rows 0-7 and rows 8.. are two matrices, as
+// factor_solve_split takes them, and run side by side on their lanes: the
+// coupled case's first 8 columns on other rows, one code path for both.
+template <typename T, int NV, class Tm, class R>
+BRT_HD void team_factor_solve(const Tm& tm, const R& rw, const T Mr[8][8],
+                              T mb, T Ib, const T ng[NV], bool split,
+                              T step[NV]) {
+  constexpr int G = Tm::G;
+  constexpr int S = (NV + G - 1) / G;   // rows per lane
+  constexpr int NB = NV - 8;            // the block's rows (none for NV = 8)
+  constexpr int NB1 = NB > 0 ? NB : 1;
+  // the slot of the lane that owns row 8 + j, and the last row of slot k
+  constexpr auto slot_b = [](int j) { return (8 + j) / G < S ? (8 + j) / G
+                                                             : S - 1; };
+  constexpr auto last = [](int k) { return k * G + G - 1 < NV ? k * G + G - 1
+                                                              : NV - 1; };
+  const int ncol = split ? 8 : NV;      // the columns of the longest block
+  int lr[S];             // a slot's row in its block (-1: none)
+  int nb[S];             // and the size of that block
+  bool inb[S];           // the slot's row is in the block of rows 8.. (split)
+  T s[S][NV];            // the row's entries left of its diagonal: H, then L
+  T c[S][NV];            // from the diagonal's turn: L[j][lr], j > lr
+  T dg[S], sy[S], diag[S], y[S];
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const int i = tm.lane + k * G;
+    const int r = i < NV ? i : 0;       // a lane with no row reads row 0
+    inb[k] = split && r >= 8;
+    lr[k] = i >= NV ? -1 : inb[k] ? r - 8 : r;
+    nb[k] = inb[k] ? NB : ncol;
+    const int e = r * (r + 1) / 2;
+#pragma unroll
+    for (int j = 0; j < NV - 1; ++j) s[k][j] = rw.H(e + (inb[k] ? 8 : 0) + j);
+    T md = r < 11 ? mb : Ib;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      T m = T(0.0);
+#pragma unroll
+      for (int a = j; a < 8; ++a)
+        if (r == a) m = Mr[a][j];
+      if (j < r && r < 8) s[k][j] = m + s[k][j];
+      if (j == r) md = m;
+    }
+    T b = T(0.0);
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+      if (r == j) b = ng[j];
+    dg[k] = i < NV ? md + rw.H(e + r) : T(1.0);
+    sy[k] = b;
+    diag[k] = y[k] = T(1.0);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) c[k][j] = T(0.0);
+  }
+  T X1[NV], X2[NB1];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) X1[j] = T(0.0);
+#pragma unroll
+  for (int j = 0; j < NB1; ++j) X2[j] = T(0.0);
+
+#pragma unroll
+  for (int t = 0; t < NV; ++t) {
+    if (t < ncol) {
+      // row t's diagonal, and the block's row t when split, from its owner
+      const T d1 = tm.bcast(Sqrt(dg[t / G]), t % G);
+      T d2 = d1;
+      if (t < NB) d2 = tm.bcast(Sqrt(dg[slot_b(t)]), (8 + t) % G);
+      // L[lr][t], and on the owner y[t] (forward solve)
+      T q[S];
+#pragma unroll
+      for (int k = 0; k < S; ++k) {
+        if (t > last(k)) continue;   // the slot's rows are done
+        const bool own = lr[k] == t;
+        const T dk = inb[k] ? d2 : d1;
+        q[k] = (own ? sy[k] : lr[k] > t ? s[k][t] : T(1.0)) / dk;
+        if (own) {
+          diag[k] = dk;
+          y[k] = q[k];
+        }
+        s[k][t] = q[k];
+      }
+      // y[t] and the column under row t's diagonal, to every lane
+      const T y1 = tm.bcast(q[t / G], t % G);
+      T y2 = y1;
+      if (t < NB) y2 = tm.bcast(q[slot_b(t)], (8 + t) % G);
+      T v1[NV], v2[NB1];
+#pragma unroll
+      for (int j = t + 1; j < NV; ++j) v1[j] = tm.bcast(s[j / G][t], j % G);
+#pragma unroll
+      for (int j = t + 1; j < NB; ++j)
+        v2[j] = tm.bcast(s[slot_b(j)][t], (8 + j) % G);
+#pragma unroll
+      for (int k = 0; k < S; ++k) {
+        if (t > last(k)) continue;
+        const T L = s[k][t];
+        if (lr[k] > t) {
+          sy[k] = fms(L, inb[k] ? y2 : y1, sy[k]);
+          dg[k] = fms(L, L, dg[k]);
+        }
+        // entries right of the row's diagonal are never read: no test
+#pragma unroll
+        for (int j = t + 1; j < NV; ++j) {
+          const T v = j < NB && inb[k] ? v2[j < NB ? j : 0] : v1[j];
+          s[k][j] = fms(L, v, s[k][j]);
+          if (lr[k] == t) c[k][j] = v;
+        }
+      }
+    }
+  }
+
+  // back solve: x[u] = (y[u] - sum_{j > u} L[j][u] x[j]) / L[u][u], j
+  // ascending, on the owner of row u
+#pragma unroll
+  for (int u = NV - 1; u >= 0; --u) {
+    if (u < ncol) {
+      T xq[S];
+#pragma unroll
+      for (int k = 0; k < S; ++k) {
+        if (u > last(k)) continue;   // no row of the slot is row u
+        T sx = y[k];
+#pragma unroll
+        for (int j = u + 1; j < NV; ++j)
+          if (j < nb[k])
+            sx = fms(c[k][j], j < NB && inb[k] ? X2[j < NB ? j : 0] : X1[j],
+                     sx);
+        const bool own = lr[k] == u;
+        xq[k] = (own ? sx : T(1.0)) / (own ? diag[k] : T(1.0));
+      }
+      X1[u] = tm.bcast(xq[u / G], u % G);
+      if (u < NB) X2[u < NB ? u : 0] = tm.bcast(xq[slot_b(u)], (8 + u) % G);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+    step[j] = j >= 8 && split ? X2[j >= 8 ? j - 8 : 0] : X1[j];
+}
+
 // From the rows to the new velocity, for a team on TeamRows: warm start
 // chosen by cost, Newton with an exact line search (fixed trip counts),
 // constraint forces, and the implicitfast update qvel += h (M - h D)^-1
@@ -923,7 +1095,9 @@ BRT_HD void factor_solve_split(const F& H, const T ng[NV], T step[NV]) {
 // and the block (K2's chassis-block and wheel-block contacts): while none
 // of them is active, H is block-diagonal and is factorized as 8 x 8 and
 // 6 x 6, which gives the bits of the 14 x 14 factorization (its
-// off-block entries are exact zeros). Mr's wheel diagonal is overwritten.
+// off-block entries are exact zeros); a team of G > 1 lanes shares either
+// out over its lanes (team_factor_solve), one lane runs the serial code.
+// Mr's wheel diagonal is overwritten.
 // On a row store that asks for it (R::ONE_PASS: LaneRows, which has J,
 // aref, D, jar and Jd only and is held by a team of one lane), each row's
 // Hessian and gradient entries and its constraint force are taken in the
@@ -1071,7 +1245,13 @@ BRT_HD void team_solve(const Tm& tm, const R& rw, int nrow, int couple_row,
       if (r < 8) return Mr[r][c] + h;
       return r == c ? (r < 11 ? mb : Ib) + h : h;
     };
-    if (NV == 8 || !coupled) {
+    if constexpr (G > 1) {
+      // the team's lanes share the factorization and the solves
+      (void)H;
+      if (NV > 8 && coupled) ck.add_coupled();
+      team_factor_solve<T, NV>(tm, rw, Mr, mb, Ib, ng, NV == 8 || !coupled,
+                               step);
+    } else if (NV == 8 || !coupled) {
       factor_solve_split<T, NV>(H, ng, step);
     } else {
 #ifndef __CUDA_ARCH__

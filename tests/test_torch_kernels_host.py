@@ -12,8 +12,12 @@ scale). A wrong kernel is caught before any GPU time.
 Also checked: the build's content hash covers every header a kernel
 includes, so an edit to a shared header rebuilds every kernel that includes
 it; the host build's section counters (`k*_count_ops_sections`) cover the
-count and the plain version's rows; and a wrapper takes the timed launch
-only under `torch.profiler`, whose counters `profiling.counters()` folds.
+count and the plain version's rows; a wrapper takes the timed launch
+only under `torch.profiler`, whose counters `profiling.counters()` folds;
+the host builds' operation counts stay what they were before the teams
+shared the factorization (the frozen work of the rooflines); and the team
+factorization itself, run by host threads standing for the lanes, gives
+the serial code's bits.
 """
 
 import contextlib
@@ -23,6 +27,7 @@ import shutil
 import subprocess
 import types
 from dataclasses import replace
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -581,3 +586,81 @@ def test_the_timed_launch_runs_only_under_the_profiler(monkeypatch, kernel):
     profiling.clear()
     assert not any(k.startswith(label) for k in profiling.counters())
     assert mod.KERNEL.sections() is None
+
+
+# ------------------------------------------------- the work the bounds count
+
+# The host builds' operation counts per env on `host_case`'s states over
+# FRAME_SKIP substeps, on the row store of each kernel's team instantiation
+# (K1's and K3's `*_count_ops_team_rows`, K2's only one), and K2's Newton
+# steps that factorized the coupled 14 x 14: what the tree gave before the
+# teams of K1, K2 and K3 shared the factorization out over their lanes. The
+# host builds are teams of one lane, which keep the serial code, so these
+# stay; the frozen work behind every roofline (perf_bench/work/) is theirs.
+PINNED_OPS = {
+    ("K1", "exact"): [363756, 849912, 836844, 363756, 413376, 858096],
+    ("K1", "fast"): [192348, 415272, 408540, 192348, 214320, 419760],
+    ("K2", "exact"): [1714836, 2483196, 355992, 156840, 480237, 577644,
+                      740715, 1128441, 419127, 156840, 447432, 1049556],
+    ("K2", "fast"): [888825, 1272780, 206424, 108072, 268173, 316188,
+                     395595, 585753, 237303, 108072, 254088, 550704],
+    ("K3", "exact"): [602088, 576552, 750288, 609372, 737916, 284592,
+                      356705, 270684, 725784, 646068, 740292, 336420,
+                      181500, 258144, 649392, 634584, 738312, 272052,
+                      602088, 532860, 726048, 333624, 738444, 440076],
+    ("K3", "fast"): [352344, 327672, 419904, 342348, 409260, 193824,
+                     230609, 186252, 408072, 360168, 410580, 218004,
+                     143724, 180048, 369696, 354888, 409656, 187620,
+                     352344, 306156, 408336, 215208, 409788, 266364],
+}
+PINNED_COUPLED = {"exact": [96, 96, 0, 0, 0, 0, 0, 0, 0, 0, 96, 96],
+                  "fast": [48, 48, 0, 0, 0, 0, 0, 0, 0, 0, 48, 48]}
+
+
+@pytest.mark.parametrize("kernel,grade", sorted(PINNED_OPS))
+def test_host_operation_counts_are_pinned(host_libs, kernel, grade):
+    count, _, states, params = host_case(kernel)
+    params = fast_solver(params) if grade == "fast" else params
+    label = f"k{kernel[1]}"
+    lib = host_libs[label]
+    kw = {"coupled": []} if kernel == "K2" else {}
+    if kernel != "K2":
+        lib = TeamRowsLib(lib, label)
+    counts, *_ = count(states, params, frame_skip=FRAME_SKIP, lib=lib, **kw)
+    assert list(counts) == PINNED_OPS[kernel, grade]
+    if kernel == "K2":
+        assert kw["coupled"] == PINNED_COUPLED[grade]
+
+
+@pytest.fixture(scope="module")
+def team_factor(tmp_path_factory):
+    """tests/team_factor_host.cpp built with g++: robot_common.cuh's team
+    factorization on a team of threads, against the serial code."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ on this host to compile the emulation")
+    exe = tmp_path_factory.mktemp("team_factor") / "team_factor"
+    subprocess.run([gxx, "-std=c++20", "-O2", "-pthread",
+                    "-I", str(kernel_build.CSRC), "-o", str(exe),
+                    str(Path(__file__).with_name("team_factor_host.cpp"))],
+                   check=True)
+    return exe
+
+
+@pytest.mark.parametrize("dtype", ["float", "double"])
+@pytest.mark.parametrize("nv,team", [(14, 32), (14, 16), (14, 8), (8, 32)],
+                         ids=["K2-32", "K2-16", "K2-8", "K1-32"])
+def test_team_factorization_gives_the_serial_bits(team_factor, nv, team,
+                                                  dtype):
+    """The Newton step that a team's lanes factorize and solve together
+    (`team_factor_solve`: a row of L per lane, the split blocks side by
+    side) has the serial code's bits on every lane, split and coupled, in
+    float and double: the same operations in the same order. Host threads
+    stand for the lanes, so this holds the order, not the card's FMA
+    contraction (the card tests hold that)."""
+    run = subprocess.run([str(team_factor), str(nv), str(team), dtype],
+                         capture_output=True, text=True)
+    assert run.returncode == 0, run.stdout
+    cases = 40 if nv == 8 else 80
+    assert run.stdout.strip().endswith(
+        f"{cases} cases, 0 entries differ"), run.stdout

@@ -395,19 +395,30 @@ def test_k2_matches_plain_on_the_card():
 
 
 @pytest.mark.cuda
-def test_k2_bits_do_not_depend_on_the_batch():
+@pytest.mark.parametrize("case", ["contact regimes", "mixed warps"])
+def test_k2_bits_do_not_depend_on_the_batch(case):
     """Every instantiation of K2 takes its row sums as a team of 32 lanes
-    would, so an env's control step gives the same bits at any batch: the
-    first envs of a launch above the second crossover (the team of 8) and
-    of one between the crossovers (the team of 16) against the same envs
-    alone (the team of 32) and one env at B = 1, in float32 and float64,
-    at both grades, on states in every contact regime."""
+    would, and its team shares the Newton factorization out over its lanes
+    in the serial code's order, so an env's control step gives the same
+    bits at any batch: the first envs of a launch above the second
+    crossover (the team of 8) and of one between the crossovers (the team
+    of 16) against the same envs alone (the team of 32) and one env at B =
+    1, in float32 and float64, at both grades, on states in every contact
+    regime. Mixed warps: on other such states, a third of them with the
+    block against the robot, launched under `torch.profiler` (the timed
+    instantiation, whose bits are the untimed one's), the warps of the
+    teams of 16 and 8 hold envs that take the coupled 14 x 14
+    factorization beside envs that take the split one (by the section
+    counters' coupled Newton steps), and each of the 61 first envs gives
+    its bits alone at B = 1."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (and nvcc to build K2)")
     M, X = cuda_block.KERNEL.crossovers()
-    qpos, qvel, ctrl = block_states(X + 61, seed=5)
     assert [cuda_block.KERNEL.launch_config(torch.float32, B)[0]
             for B in (61, M + 61, X + 61)] == [32, 16, 8]
+    if case == "mixed warps":
+        return _k2_mixed_warps(M, X)
+    qpos, qvel, ctrl = block_states(X + 61, seed=5)
     for dtype in (torch.float32, torch.float64):
         args = [t.to("cuda", dtype) for t in (
             qpos, qvel, torch.zeros_like(qvel), ctrl)]
@@ -424,6 +435,36 @@ def test_k2_bits_do_not_depend_on_the_batch():
                 assert torch.equal(a[:61], b), (dtype, params.newton_iters)
                 assert torch.equal(m[:61], b), (dtype, params.newton_iters)
                 assert torch.equal(a[37:38], c)
+
+
+def _k2_mixed_warps(M, X):
+    K = cuda_block.KERNEL
+    coupled_at = cuda_kernel.COUNTERS.index("coupled")
+    cpu_only = [torch.profiler.ProfilerActivity.CPU]
+    qpos, qvel, ctrl = block_states(X + 61, seed=7)
+    for dtype in (torch.float32, torch.float64):
+        args = [t.to("cuda", dtype) for t in (
+            qpos, qvel, torch.zeros_like(qvel), ctrl)]
+        for params in (bs.ENV03_PARAMS, fast_solver(bs.ENV03_PARAMS)):
+            K.clear_sections()
+            with torch.profiler.profile(activities=cpu_only):
+                outs = [cuda_block.control_step14_cuda(
+                    *(t[:B].contiguous() for t in args), params)
+                    for B in (61, M + 61, X + 61)]
+            torch.cuda.synchronize()
+            rows = K.section_rows()
+            assert K.sections()["total"]["coupled"] > 0
+            for B, envs in ((M + 61, 2), (X + 61, 4)):
+                steps = rows[B][:60, coupled_at].view(-1, envs)
+                mixed = (steps.max(1).values > 0) & (steps.min(1).values == 0)
+                assert mixed.any(), (dtype, B, steps.tolist())
+            for i in range(61):
+                one = cuda_block.control_step14_cuda(
+                    *(t[i:i + 1].contiguous() for t in args), params)
+                for out in outs:
+                    for a, c in zip(out, one):
+                        assert torch.equal(a[i:i + 1], c), (
+                            dtype, params.newton_iters, i)
 
 
 @pytest.mark.cuda

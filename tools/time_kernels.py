@@ -26,16 +26,17 @@ batch of a rung: the library's `crossovers()`), besides these cases: K1
 at B = 256 (Env01 serving's batch), 512, 1024 (training), 1536, 2048,
 2176 and 3072, fast and exact grade (2112 is one wave of its 32-lane
 team); K2 at B = 512 (the evals), 1024 (training and the flagship
-serving) and 2048, fast and exact grade, at 1,792 (the oracle's
-generations), fast grade, and at 896 on the MPC expert's lockstep batch
-(14 impact states x 64 candidates), fast and exact grade; K3 at B = 2048,
+serving), 1,792 (the oracle's generations) and 2048, fast and exact grade,
+and at 896 on the MPC expert's lockstep batch (14 impact states x 64
+candidates), fast and exact grade; K3 at B = 2048,
 1088, 1024 and 512 (EnvMove05-v1 serving's batch), fast grade (1056 is one
 wave of its 32-lane team), and at 512, exact grade; the
-first B envs of the main path's states, float32; K2 at B = 4096 and 512,
-fast grade, on
+first B envs of the main path's states, float32; K2 at B = 1, 512, 1024,
+1,792 and 4096, fast and exact grade, on
 chip_smoke.random_states14's impact states, where a third of the envs have
 the block against the robot (the 14 x 14 factorization of a coupled
-Hessian), and on the Env03-v2 main path's states after its first step
+Hessian), and at 4096, fast grade, on the Env03-v2 main path's states after
+its first step
 (fresh episodes, the block in flight); K3 at B = 4096 and 512, fast grade,
 on chip_smoke.random_states_walls's states, every env at a wall; K3, fast
 grade, on the float32 at-the-wall states of chip_smoke.py phase 3c
@@ -385,10 +386,12 @@ def main():
                       for B in sorted({512, 1024, 2048} | edges("K2"))]
             cases += [("K2", 896, grade + " lockstep", lockstep,
                        grades[grade]) for grade in grades]
-            cases += [("K2", 1792, "fast", s03, (env03.params,)),
-                      ("K2", 4096, "fast impact", impact, (env03.params,)),
-                      ("K2", 512, "fast impact", impact, (env03.params,)),
-                      ("K2", 4096, "fast first-step", s03_first,
+            cases += [("K2", 1792, grade, s03, grades[grade])
+                      for grade in grades]
+            cases += [("K2", B, grade + " impact", impact, grades[grade])
+                      for grade in grades
+                      for B in (1, 512, 1024, 1792, 4096)]
+            cases += [("K2", 4096, "fast first-step", s03_first,
                        (env03.params,))]
             section_cases += [("K2", B, grade + kind, states, grades[grade])
                               for kind, states in (("", s03),
